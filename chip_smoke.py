@@ -1,0 +1,507 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (ips_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Run from the repository root on a machine with a CUDA card, ``nvcc`` and
+``nvidia-smi``. It imports nothing of JAX or of the JAX package. Phases:
+
+  1. device  — the card's name and power limit;
+  2. build   — ``nvcc`` builds every kernel of the path from csrc/;
+  3. kernels — each kernel against its plain PyTorch version at the
+               shapes of the main path (and of later paths), with stated
+               tolerances; CUDA-event times of kernel, plain version and
+               one library call;
+  4. predict — the main path: ``Predictor`` at the full megapixel-MNIST
+               width (config/mnist_config.yml, random weights from the
+               seed), several requests, launch counts and output checks,
+               and the same selection with the plain scorer;
+  5. cli     — ``ips_tpu_torch.infer.main`` on two .npy inputs and a
+               ``torch.save`` checkpoint in a temporary directory.
+
+Any failed phase raises, so the script exits non-zero. The line before
+the last is a JSON object with one entry per kernel; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+# config/mnist_config.yml as a literal: the card machine has no pyyaml.
+# tests/test_torch_config.py holds it equal to the YAML file.
+MNIST_CONFIG = {
+    "n_epoch": 150, "B": 16, "B_seq": 16, "n_epoch_warmup": 10, "lr": 0.001,
+    "wd": 0.1, "n_class": 10,
+    "data_dir": "data/megapixel_mnist/dsets/megapixel_mnist_1500",
+    "n_worker": 8, "pin_memory": True, "eager": True, "eps": 1e-06,
+    "seed": 0, "track_efficiency": False, "track_epoch": 0,
+    "is_image": True, "enc_type": "resnet18", "pretrained": False,
+    "n_chan_in": 1, "n_res_blocks": 2, "shuffle": True,
+    "shuffle_style": "batch", "n_token": 4, "N": 900, "M": 100, "I": 100,
+    "patch_size": [50, 50], "patch_stride": [50, 50], "use_pos": True,
+    "H": 8, "D": 128, "D_k": 16, "D_v": 16, "D_inner": 512,
+    "attn_dropout": 0.1, "dropout": 0.1,
+    "tasks": {
+        "task0": {"id": 0, "name": "majority", "act_fn": "softmax",
+                  "metric": "accuracy"},
+        "task1": {"id": 1, "name": "max", "act_fn": "softmax",
+                  "metric": "accuracy"},
+        "task2": {"id": 2, "name": "top", "act_fn": "softmax",
+                  "metric": "accuracy"},
+        "task3": {"id": 3, "name": "multi", "act_fn": "sigmoid",
+                  "metric": "multilabel_accuracy"},
+    },
+    "compute_dtype": "bfloat16", "use_pallas": False, "mesh_data": 1,
+    "mesh_patch": 1, "sparse_input": True, "input_dtype": "bfloat16",
+    "steps_per_dispatch": 8,
+}
+
+SEED = 0
+N_REQUESTS = 4
+
+# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+
+# Kernel vs plain tolerances. Both accumulate the same fp32 products (bf16
+# inputs are widened exactly), in another order: logits of magnitude ~1
+# summed over D <= 512 terms differ by a few fp32 ulps of the partial sums.
+LOGITS_RTOL, LOGITS_ATOL = 1e-5, 1e-4
+SCORES_RTOL, SCORES_ATOL = 1e-4, 1e-6
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+class Phase:
+    """Prints one progress line per phase with its wall time."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+        log(f"[{self.name}] start")
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        dt = time.perf_counter() - self.t0
+        log(f"[{self.name}] {'ok' if exc is None else 'FAILED'} "
+            f"({dt:.2f} s)")
+        return False
+
+
+def cuda_ms(torch, fn, iters: int = 200, warmup: int = 20) -> float:
+    """Mean time of one call of ``fn`` in ms, from CUDA events around a run
+    of ``iters`` back-to-back calls after ``warmup`` calls. Where one call
+    enqueues less device work than the host takes to issue it, this is the
+    host's issue rate, not the device's time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_kernels(torch, fn, iters: int = 1):
+    """Run ``fn`` ``iters`` times under torch.profiler (CUPTI); returns
+    {kernel name: (total device us, count)} over the device-side events."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us, n = out.get(e.name, (0.0, 0))
+            out[e.name] = (us + e.device_time_total, n + 1)
+    return out
+
+
+def device_ms(torch, fn, iters: int = 50, warmup: int = 20):
+    """Device time of one call of ``fn`` in ms: the summed durations of the
+    kernels it launches (gaps between them excluded), from the profiler.
+    Inputs stay in L2, as they do in the selection loop, where the scored
+    tensor was just written. None if the profiler saw no device event."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    kernels = device_kernels(torch, fn, iters)
+    if not kernels:
+        return None
+    return sum(us for us, _ in kernels.values()) / iters / 1e3
+
+
+def logits_bound(B, L, D, TH, dtype_name):
+    """Least time on the card in ms, and what sets it: bytes (x and W_eff
+    read once, fp32 logits written once) over the HBM rate, or FLOPs over
+    the peak rate of x's type."""
+    item = 4 if dtype_name == "float32" else 2
+    nbytes = B * L * D * item + D * TH * item + B * L * TH * 4
+    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    ops_ms = 1e3 * 2 * B * L * D * TH / PEAK_FLOPS[dtype_name]
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
+                                   else "operations")
+
+
+def phase_device(torch):
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    log(f"device: {name} (count {torch.cuda.device_count()}), torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"nvidia-smi: {card}")
+    return name, card
+
+
+def phase_build():
+    from ips_tpu_torch.utils.cuda_build import build_library
+    t0 = time.perf_counter()
+    path, out = build_library("score_logits")
+    dt = time.perf_counter() - t0
+    for line in out.splitlines():
+        if line.strip():
+            log(f"  nvcc: {line.strip()}")
+    log(f"built {os.path.relpath(path)} in {dt:.2f} s")
+
+
+def phase_kernels(torch, np, device):
+    """score_logits against its plain version; returns the JSON entry for
+    the main-path shape."""
+    from ips_tpu_torch.ops import score_kernel as sk
+    rng = np.random.default_rng(SEED)
+    # (name, B, L, D, TH, dtype): the MNIST selection shape first (the
+    # main path scores (16, M+I=200, 128) against T*H = 4*8 = 32), a ragged
+    # L, and the camelyon feature-mode shape (L = M+I = 10000, T*H = 8)
+    cases = [("mnist", 16, 200, 128, 32, "float32"),
+             ("mnist", 16, 200, 128, 32, "bfloat16"),
+             ("ragged", 4, 1037, 128, 32, "float32"),
+             ("camelyon", 1, 10000, 512, 8, "bfloat16")]
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    main_entry = None
+    for name, B, L, D, TH, dt in cases:
+        x = torch.from_numpy(rng.standard_normal((B, L, D), np.float32)
+                             ).to(device, dtypes[dt])
+        w = torch.from_numpy(0.1 * rng.standard_normal((D, TH), np.float32)
+                             ).to(device, dtypes[dt])
+        got = sk.logits(x, w)
+        ref = sk.plain_logits(x, w)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        torch.testing.assert_close(got, ref, rtol=LOGITS_RTOL,
+                                   atol=LOGITS_ATOL)
+        s_got = sk.scores(x, w)
+        s_ref = sk.fast_scores(x, w)
+        torch.testing.assert_close(s_got, s_ref, rtol=SCORES_RTOL,
+                                   atol=SCORES_ATOL)
+        fns = {
+            "kernel": lambda: sk.logits(x, w),
+            "plain": lambda: sk.plain_logits(x, w),
+            "torch.matmul": lambda: torch.matmul(x, w),
+            "scores kernel+epilogue": lambda: sk.scores(x, w),
+            "scores plain": lambda: sk.fast_scores(x, w),
+            "scores matmul+softmax yardstick": lambda: torch.softmax(
+                torch.matmul(x, w).float(), dim=1).mean(-1)}
+        host = {k: cuda_ms(torch, f) for k, f in fns.items()}
+        dev = {k: device_ms(torch, f) for k, f in fns.items()}
+        if None in dev.values():            # no CUPTI: fall back to events
+            log("    the profiler saw no device kernels: times below are "
+                "CUDA-event times of back-to-back calls")
+            dev = host
+        bound, bound_by = logits_bound(B, L, D, TH, dt)
+        log(f"  logits {name} B={B} L={L} D={D} TH={TH} {dt}: max|err| "
+            f"{err:.3e} (rtol {LOGITS_RTOL}, atol {LOGITS_ATOL}); bound "
+            f"{bound * 1e3:.3f} us ({bound_by})")
+        for k in fns:
+            log(f"    {k}: device {dev[k] * 1e3:.2f} us, per call in a "
+                f"back-to-back loop {host[k] * 1e3:.2f} us")
+        ms, plain_ms, lib_ms = (dev["kernel"], dev["plain"],
+                                dev["torch.matmul"])
+        if main_entry is None:
+            main_entry = {
+                "name": "score_logits", "route": "cuda",
+                "source": "ips_tpu_torch/csrc/score_logits.cu",
+                "replaces": "ips_tpu/ops/score_kernel.py:88",
+                "launches": None, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": bound_by, "library_ms": lib_ms}
+
+    # masked scores: row 0 fully masked (must be uniform), row 1 ragged
+    B, L, D, TH = 16, 200, 128, 32
+    x = torch.from_numpy(rng.standard_normal((B, L, D), np.float32)
+                         ).to(device)
+    w = torch.from_numpy(0.1 * rng.standard_normal((D, TH), np.float32)
+                         ).to(device)
+    mask = torch.ones((B, L), dtype=torch.bool, device=device)
+    mask[0] = False
+    mask[1, -37:] = False
+    got = sk.scores(x, w, mask)
+    torch.testing.assert_close(got, sk.fast_scores(x, w, mask),
+                               rtol=SCORES_RTOL, atol=SCORES_ATOL)
+    torch.testing.assert_close(got[0], torch.full_like(got[0], 1.0 / L),
+                               rtol=1e-6, atol=0.0)
+    if got[1, -37:].max().item() > 1e-6:
+        raise AssertionError("masked candidates took softmax mass")
+    log("  masked scores: match plain; fully masked row uniform")
+    return main_entry
+
+
+def make_patches(np, conf):
+    """A megapixel-MNIST-like batch: most patches blank, the rest random."""
+    rng = np.random.default_rng(SEED + 1)
+    ph, pw = conf.patch_size
+    shape = (conf.B, conf.N, ph, pw, conf.n_chan_in)
+    patches = rng.random(shape, dtype=np.float32)
+    blank = rng.random((conf.B, conf.N)) < 0.7
+    patches[blank] = 0.0
+    return patches
+
+
+def near_tie_report(torch, pred, patches_dev, mask):
+    """Replay selection on the kernel's trajectory, scoring each step with
+    both scorers; at the first step whose kept sets differ, return the
+    gap at the M-th place and the two scorers' largest difference."""
+    from ips_tpu_torch.ops import score_kernel as sk
+    from ips_tpu_torch.ops.selection import ips_select
+    model, conf = pred.trainer.model, pred.conf
+    report = []
+
+    def score(emb, valid):
+        w = model.score_weights()
+        k = sk.scores(emb, w, valid)
+        p = sk.fast_scores(emb, w, valid)
+        if not report:
+            ks = torch.sort(k, dim=1, descending=True,
+                            stable=True)[1][:, :conf.M]
+            ps = torch.sort(p, dim=1, descending=True, stable=True)
+            diff = (ks.sort(1)[0] != ps[1][:, :conf.M].sort(1)[0]).any(1)
+            if diff.any():
+                r = int(diff.nonzero()[0])
+                vals = ps[0][r]
+                report.append({
+                    "row": r,
+                    "gap_at_M": float(vals[conf.M - 1] - vals[conf.M]),
+                    "max_score_diff": float((k[r] - p[r]).abs().max())})
+        return k
+
+    with torch.inference_mode():
+        ips_select(model.encode, score, patches_dev, M=conf.M, I=conf.I,
+                   pos_table=pred.trainer.pos_table, mask=mask)
+    return report
+
+
+def phase_predict(torch, np, device, card):
+    from ips_tpu_torch.config import config_from_dict
+    from ips_tpu_torch.infer import Predictor
+    from ips_tpu_torch.ops import score_kernel as sk
+    from ips_tpu_torch.ops.selection import ips_select
+
+    conf = config_from_dict(MNIST_CONFIG)
+    pred = Predictor(conf)                 # the card, by default
+    if pred.device.type != "cuda":
+        raise AssertionError(f"Predictor defaulted to {pred.device}")
+    patches = make_patches(np, conf)
+    n_iter = math.ceil((conf.N - conf.M) / conf.I)
+    log(f"  config: B={conf.B} N={conf.N} patch={conf.patch_size} "
+        f"M={conf.M} I={conf.I} D={conf.D} H={conf.H} T={conf.n_token} "
+        f"{conf.enc_type}/{conf.n_res_blocks} blocks, "
+        f"{conf.compute_dtype} compute, score_impl={conf.score_impl}")
+
+    torch.cuda.reset_peak_memory_stats()
+    sk.logits.launches = 0
+    outs, times = [], []
+    for i in range(N_REQUESTS):
+        before = sk.logits.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pred.predict(patches)        # ends in a device->host copy
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launched = sk.logits.launches - before
+        if launched != n_iter:
+            raise AssertionError(f"request {i}: score kernel launched "
+                                 f"{launched} times, expected {n_iter}")
+        outs.append(out)
+        log(f"  request {i}: {times[-1] * 1e3:.2f} ms, {launched} kernel "
+            "launches")
+    launches = sk.logits.launches
+    peak = torch.cuda.max_memory_allocated()
+
+    out = outs[-1]
+    for task in conf.task_list:
+        p = out[task.name]
+        if p.shape != (conf.B, conf.n_class) or not np.isfinite(p).all():
+            raise AssertionError(f"{task.name}: bad output {p.shape}")
+        if task.act_fn == "softmax":
+            np.testing.assert_allclose(p.sum(-1), 1.0, rtol=0, atol=1e-5)
+    idx = out["selected_idx"]
+    if idx.shape != (conf.B, conf.M):
+        raise AssertionError(f"selected_idx shape {idx.shape}")
+    if idx.min() < 0 or idx.max() >= conf.N:
+        raise AssertionError("selected_idx out of range")
+    if any(len(np.unique(r)) != conf.M for r in idx):
+        raise AssertionError("selected_idx not unique per row")
+    for o in outs[1:]:
+        np.testing.assert_array_equal(o["selected_idx"], idx)
+
+    # the same selection with the plain scorer
+    model = pred.trainer.model
+    x = torch.from_numpy(patches).to(device).to(torch.bfloat16)
+    mask = torch.ones((conf.B, conf.N), dtype=torch.bool, device=device)
+    with torch.inference_mode():
+        res = ips_select(
+            model.encode,
+            lambda e, m: sk.fast_scores(e, model.score_weights(), m),
+            x, M=conf.M, I=conf.I, pos_table=pred.trainer.pos_table,
+            mask=mask)
+    plain_idx = res.mem_idx.cpu().numpy()
+    if np.array_equal(plain_idx, idx):
+        log("  plain-scorer selection: identical indices")
+    else:
+        report = near_tie_report(torch, pred, x, mask)
+        log(f"  plain-scorer selection differs in "
+            f"{int((plain_idx != idx).any(1).sum())} rows; first differing "
+            f"step: {report}")
+        if not report or report[0]["gap_at_M"] > 2 * report[0][
+                "max_score_diff"]:
+            raise AssertionError("kernel and plain scorers select "
+                                 "differently away from a near-tie")
+
+    steady = sorted(times[1:])
+    median = steady[len(steady) // 2]
+    log(f"  predict: first {times[0] * 1e3:.2f} ms, steady median "
+        f"{median * 1e3:.2f} ms over {len(steady)} "
+        f"requests, peak memory {peak / 2**20:.1f} MiB "
+        f"(max_memory_allocated), card {card}")
+    breakdown(torch, lambda: pred.predict(patches), median)
+    return pred, patches, launches
+
+
+def _category(name: str) -> str:
+    n = name.lower()
+    for cat, keys in (("score_logits kernel", ("score_logits",)),
+                      ("memcpy/memset", ("memcpy", "memset")),
+                      ("convolution", ("conv", "cudnn", "xmma", "fprop",
+                                       "implicit")),
+                      ("gemm", ("gemm", "cutlass", "cublas")),
+                      ("sort (top-M)", ("sort", "radix")),
+                      ("gather/index", ("gather", "index")),
+                      ("reduce (softmax, mean, pool)", ("reduce", "softmax",
+                                                        "pool", "mean"))):
+        if any(k in n for k in keys):
+            return cat
+    return "elementwise/other"
+
+
+def breakdown(torch, request, wall_s):
+    """Device time of one profiled request, by kernel category; the idle
+    share is against the unprofiled steady request time."""
+    kernels = device_kernels(torch, request)
+    if not kernels:
+        log("  breakdown: the profiler saw no device kernels")
+        return
+    busy_ms = sum(us for us, _ in kernels.values()) / 1e3
+    cats = {}
+    for name, (us, n) in kernels.items():
+        c = cats.setdefault(_category(name), [0.0, 0])
+        c[0] += us / 1e3
+        c[1] += n
+    log(f"  device busy {busy_ms:.2f} ms of a {wall_s * 1e3:.2f} ms request"
+        f" (idle share {1 - busy_ms / (wall_s * 1e3):.3f}); "
+        f"{sum(n for _, n in kernels.values())} device ops")
+    for cat, (ms, n) in sorted(cats.items(), key=lambda kv: -kv[1][0]):
+        log(f"    {cat}: {ms:.3f} ms, {n} ops")
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
+    for name, (us, n) in top:
+        log(f"    top: {us / 1e3:.3f} ms x{n} {name[:90]}")
+
+
+def phase_cli(torch, np, pred, patches):
+    from ips_tpu_torch.infer import main as infer_main
+    tmp = tempfile.mkdtemp(prefix="ips_tpu_torch_smoke_")
+    try:
+        cfg = os.path.join(tmp, "config.json")
+        with open(cfg, "w") as f:
+            json.dump(MNIST_CONFIG, f)
+        ckpt = os.path.join(tmp, "weights.pt")
+        torch.save(pred.trainer.model.state_dict(), ckpt)
+        inputs = []
+        for i in range(2):
+            p = os.path.join(tmp, f"image{i}.npy")
+            np.save(p, patches[i])
+            inputs.append(p)
+        out = os.path.join(tmp, "preds.json")
+        infer_main(["--config", cfg, "--checkpoint", ckpt, "--input",
+                    *inputs, "--output", out])
+        with open(out) as f:
+            rows = json.load(f)
+        direct = pred.predict(patches[:2])
+        if [r["input"] for r in rows] != ["image0.npy", "image1.npy"]:
+            raise AssertionError(f"CLI rows {[r['input'] for r in rows]}")
+        for i, r in enumerate(rows):
+            np.testing.assert_array_equal(r["selected_patches"],
+                                          direct["selected_idx"][i])
+            np.testing.assert_allclose(r["majority"]["probs"],
+                                       direct["majority"][i], atol=1e-5)
+        log(f"  CLI: {len(rows)} rows, selection and probabilities match "
+            "the Predictor")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
+    # stated numerics: fp32 products in full fp32 (the main path's convs
+    # and projections compute in bf16)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+    with Phase("device"):
+        kind, card = phase_device(torch)
+    with Phase("build"):
+        phase_build()
+    with Phase("kernels"):
+        entry = phase_kernels(torch, np, device)
+    with Phase("predict"):
+        pred, patches, launches = phase_predict(torch, np, device, card)
+    with Phase("cli"):
+        phase_cli(torch, np, pred, patches)
+    entry["launches"] = launches
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,13 @@
+"""ips_tpu_torch — the PyTorch/CUDA port of ips_tpu (Iterative Patch
+Selection), written for an NVIDIA H100.
+
+``ips_tpu`` (JAX) stays the reference; each module here mirrors the
+module of the same name there. Ported so far: inference
+(:class:`ips_tpu_torch.infer.Predictor`), with the saliency scorer's
+logits GEMM as a hand-written CUDA kernel (``csrc/score_logits.cu``).
+Entry points run on ``cuda`` unless the caller passes ``device='cpu'``.
+"""
+
+from ips_tpu_torch.config import Config, TaskConfig, load_config  # noqa: F401
+
+__version__ = "0.1.0"

@@ -1,0 +1,147 @@
+"""Patch encoder: truncated ResNet (counterpart of
+ips_tpu/models/encoders.py).
+
+torchvision-style ResNet-18/50 cut after layer2 (``n_res_blocks=2``) or
+layer4 (``n_res_blocks=4``), with the 7x7 stem rebuilt for ``n_chan_in``
+channels, ending in global average pooling. Tensors are NCHW in
+channels_last memory, so a (n, H, W, C) patch batch enters as a view.
+
+As in the reference, parameters stay fp32 and every conv casts its input
+and weight to the compute dtype; BatchNorm outputs fp32, so activations
+between convs, the residual sums and the pooled output are fp32.
+
+``FeatureProjector`` (feature mode) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ips_tpu_torch.models.norm import MaskedBatchNorm
+
+_STAGE_BLOCKS = {"resnet18": (2, 2, 2, 2), "resnet50": (3, 4, 6, 3)}
+
+
+def encoder_out_dim(enc_type: str, n_res_blocks: int) -> int:
+    """Feature dim after truncation (128/512 for r18, 512/2048 for r50)."""
+    if enc_type == "resnet18":
+        return 128 if n_res_blocks == 2 else 512
+    return 512 if n_res_blocks == 2 else 2048
+
+
+class Conv(nn.Conv2d):
+    """Bias-free conv that computes in ``dtype`` (flax ``nn.Conv(dtype=)``)."""
+
+    def __init__(self, c_in: int, c_out: int, k: int, stride: int = 1,
+                 padding: int = 0, dtype: torch.dtype = torch.float32):
+        super().__init__(c_in, c_out, k, stride=stride, padding=padding,
+                         bias=False)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x.to(self.dtype),
+                                  self.weight.to(self.dtype), None)
+
+
+class StemConv(Conv):
+    """7x7/stride-2 stem. The reference's space-to-depth form (``s2d``)
+    is a TPU reformulation with the same output, so the port runs the
+    plain conv for either setting."""
+
+    def __init__(self, n_chan_in: int, s2d: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(n_chan_in, 64, 7, stride=2, padding=3, dtype=dtype)
+        self.s2d = s2d
+
+
+class BasicBlock(nn.Module):
+    """ResNet-18/34 residual block (3x3 -> 3x3)."""
+
+    def __init__(self, c_in: int, filters: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv1 = Conv(c_in, filters, 3, stride, 1, dtype)
+        self.bn1 = MaskedBatchNorm(filters)
+        self.conv2 = Conv(filters, filters, 3, 1, 1, dtype)
+        self.bn2 = MaskedBatchNorm(filters)
+        if c_in != filters or stride != 1:
+            self.downsample_conv = Conv(c_in, filters, 1, stride, 0, dtype)
+            self.downsample_bn = MaskedBatchNorm(filters)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        residual = x
+        if hasattr(self, "downsample_conv"):
+            residual = self.downsample_bn(self.downsample_conv(x))
+        return F.relu(y + residual)
+
+
+class BottleneckBlock(nn.Module):
+    """ResNet-50 residual block (1x1 -> 3x3 -> 1x1, expansion 4)."""
+
+    def __init__(self, c_in: int, width: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        out_ch = width * 4
+        self.conv1 = Conv(c_in, width, 1, 1, 0, dtype)
+        self.bn1 = MaskedBatchNorm(width)
+        self.conv2 = Conv(width, width, 3, stride, 1, dtype)
+        self.bn2 = MaskedBatchNorm(width)
+        self.conv3 = Conv(width, out_ch, 1, 1, 0, dtype)
+        self.bn3 = MaskedBatchNorm(out_ch)
+        if c_in != out_ch or stride != 1:
+            self.downsample_conv = Conv(c_in, out_ch, 1, stride, 0, dtype)
+            self.downsample_bn = MaskedBatchNorm(out_ch)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = x
+        if hasattr(self, "downsample_conv"):
+            residual = self.downsample_bn(self.downsample_conv(x))
+        return F.relu(y + residual)
+
+
+class ConvPatchEncoder(nn.Module):
+    """Truncated ResNet over (n, H, W, C) patches -> (n, D_out) fp32.
+
+    Submodule names follow the reference's parameter tree
+    (``conv1``, ``bn1``, ``layer<s>_block<b>``) so that the weight bridge
+    maps names one to one.
+    """
+
+    def __init__(self, enc_type: str = "resnet18", n_chan_in: int = 3,
+                 n_res_blocks: int = 2, s2d_stem: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        blocks = _STAGE_BLOCKS[enc_type]
+        bottleneck = enc_type == "resnet50"
+        self.conv1 = StemConv(n_chan_in, s2d_stem, dtype)
+        self.bn1 = MaskedBatchNorm(64)
+        self.block_names = []
+        c_in = 64
+        for stage in range(2 if n_res_blocks == 2 else 4):
+            width = 64 * (2 ** stage)
+            for b in range(blocks[stage]):
+                stride = (1 if stage == 0 else 2) if b == 0 else 1
+                name = f"layer{stage + 1}_block{b}"
+                if bottleneck:
+                    blk = BottleneckBlock(c_in, width, stride, dtype)
+                    c_in = width * 4
+                else:
+                    blk = BasicBlock(c_in, width, stride, dtype)
+                    c_in = width
+                self.add_module(name, blk)
+                self.block_names.append(name)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.permute(0, 3, 1, 2)          # NHWC -> NCHW, channels_last view
+        y = F.relu(self.bn1(self.conv1(y)))
+        y = F.max_pool2d(y, 3, stride=2, padding=1)
+        for name in self.block_names:
+            y = getattr(self, name)(y)
+        return y.mean(dim=(2, 3), dtype=torch.float32)

@@ -1,0 +1,22 @@
+"""Device resolution for the port's entry points."""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """The port runs on the card unless the caller asks for another device.
+
+    ``None`` means ``cuda``; without a CUDA device that raises instead of
+    falling back to the CPU, so a CPU run is always an explicit request.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "port on the CPU")
+    return dev

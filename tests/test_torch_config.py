@@ -1,0 +1,72 @@
+"""The port's config copy and the chip smoke script's config literal."""
+
+import importlib.util
+import os
+
+import pytest
+import yaml
+
+from ips_tpu.config import load_config as j_load
+from ips_tpu_torch.config import config_from_dict, load_config
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _smoke_module():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_smoke_literal_equals_mnist_yaml():
+    path = os.path.join(REPO, "config", "mnist_config.yml")
+    with open(path) as f:
+        assert _smoke_module().MNIST_CONFIG == yaml.safe_load(f)
+    assert config_from_dict(_smoke_module().MNIST_CONFIG) == load_config(path)
+
+
+@pytest.mark.parametrize("name", ["mnist_config.yml", "traffic_config.yml"])
+def test_same_fields_as_reference(name):
+    path = os.path.join(REPO, "config", name)
+    ours, ref = load_config(path), j_load(path)
+    assert ours.to_dict() == ref.to_dict()
+
+
+def test_overrides_and_json(tmp_path):
+    path = os.path.join(REPO, "config", "mnist_config.yml")
+    conf = load_config(path, ["M=50", "compute_dtype=float32"])
+    assert (conf.M, conf.compute_dtype) == (50, "float32")
+    js = tmp_path / "c.json"
+    js.write_text(__import__("json").dumps(_smoke_module().MNIST_CONFIG))
+    assert load_config(str(js)) == load_config(path)
+    with pytest.raises(ValueError, match="key=value"):
+        load_config(path, ["M"])
+    with pytest.raises(ValueError, match="unknown config keys"):
+        config_from_dict(dict(_smoke_module().MNIST_CONFIG, bogus=1))
+
+
+@pytest.mark.parametrize("over,match", [
+    ({"is_image": False}, "item 3"), ({"select_dtype": "int8"}, "item 6"),
+    ({"preencode_select": True}, "item 4"), ({"mesh_data": 2}, "item 6"),
+    ({"mesh_patch": 2}, "item 6")])
+def test_unported_values_raise(over, match):
+    base = dict(_smoke_module().MNIST_CONFIG)
+    with pytest.raises(NotImplementedError, match=match):
+        config_from_dict(dict(base, **over))
+
+
+def test_camelyon_config_names_the_roadmap_item():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        load_config(os.path.join(REPO, "config", "camelyon_config.yml"))
+
+
+def test_validation_is_kept():
+    base = dict(_smoke_module().MNIST_CONFIG)
+    with pytest.raises(ValueError, match="B_seq"):
+        config_from_dict(dict(base, B_seq=3))
+    with pytest.raises(ValueError, match="n_token"):
+        config_from_dict(dict(base, n_token=2))
+    assert config_from_dict(dict(base, use_pallas=True)).score_impl == \
+        "pallas"

@@ -1,0 +1,87 @@
+"""Card-only tests of the port: the CUDA kernel against its plain version.
+
+Skipped without a CUDA card. On the card (no JAX there):
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ips_tpu_torch.ops import score_kernel as sk
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _inputs(device, B, L, D, TH, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((B, L, D), np.float32))
+    w = torch.from_numpy(0.1 * rng.standard_normal((D, TH), np.float32))
+    return x.to(device, dtype), w.to(device, dtype)
+
+
+# fp32 sums of the same products in another order: a few ulps of O(1)
+@pytest.mark.parametrize("B,L,D,TH,dtype", [
+    (16, 200, 128, 32, torch.float32), (16, 200, 128, 32, torch.bfloat16),
+    (4, 1037, 128, 32, torch.float32), (1, 10000, 512, 8, torch.bfloat16),
+    (3, 33, 70, 64, torch.float32), (2, 1, 5, 1, torch.float32)])
+def test_kernel_matches_plain(cuda, B, L, D, TH, dtype):
+    x, w = _inputs(cuda, B, L, D, TH, dtype)
+    before = sk.logits.launches
+    got = sk.logits(x, w)
+    assert sk.logits.launches == before + 1
+    torch.testing.assert_close(got, sk.plain_logits(x, w), rtol=1e-5,
+                               atol=1e-4)
+
+
+def test_kernel_scores_masked(cuda):
+    x, w = _inputs(cuda, 4, 200, 128, 32, torch.float32, seed=1)
+    mask = torch.ones((4, 200), dtype=torch.bool, device=cuda)
+    mask[0] = False
+    mask[2, 150:] = False
+    got = sk.scores(x, w, mask)
+    torch.testing.assert_close(got, sk.fast_scores(x, w, mask), rtol=1e-4,
+                               atol=1e-6)
+    torch.testing.assert_close(got[0], torch.full_like(got[0], 1 / 200),
+                               rtol=1e-6, atol=0.0)
+
+
+def test_kernel_wrapper_rejects(cuda):
+    x, w = _inputs(cuda, 2, 8, 16, 4, torch.float32)
+    with pytest.raises(TypeError):
+        sk.logits(x.half(), w.half())
+    with pytest.raises(TypeError):
+        sk.logits(x, w.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.logits(x.transpose(0, 1), w)
+    with pytest.raises(ValueError, match="out of range"):
+        sk.logits(*_inputs(cuda, 2, 8, 16, 65, torch.float32))
+
+
+def test_predictor_defaults_to_card_and_uses_kernel(cuda):
+    from ips_tpu_torch.config import config_from_dict
+    from ips_tpu_torch.infer import Predictor
+    conf = config_from_dict(dict(
+        B=2, B_seq=2, n_class=10, n_chan_in=1, n_token=2, N=23, M=4, I=5,
+        patch_size=[16, 16], patch_stride=[16, 16], use_pos=True, H=4,
+        D=128, D_k=16, D_v=16, D_inner=256, compute_dtype="float32",
+        tasks={"t": {"id": 0, "name": "t", "act_fn": "softmax",
+                     "metric": "accuracy"}}))
+    pred = Predictor(conf)
+    assert pred.device.type == "cuda"
+    x = np.random.default_rng(2).random((2, 23, 16, 16, 1), np.float32)
+    before = sk.logits.launches
+    out = pred.predict(x)
+    assert sk.logits.launches - before == 4       # ceil((23 - 4) / 5)
+    cpu = Predictor(conf, trainer=pred.trainer, device="cpu").predict(x)
+    np.testing.assert_array_equal(out["selected_idx"], cpu["selected_idx"])
+    np.testing.assert_allclose(out["t"], cpu["t"], rtol=1e-4, atol=1e-5)

@@ -1,0 +1,126 @@
+"""The port's saliency scorer against the JAX package's.
+
+Inputs come from a seeded numpy generator and go to both sides. The JAX
+Pallas kernel runs in interpret mode, as tests/test_score_kernel.py runs
+it on the CPU; the port's kernel wrapper takes its plain version on a CPU
+tensor. The CUDA kernel itself is held against the plain version on the
+card (tests/test_torch_gpu.py and chip_smoke.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ips_tpu.models.transformer import CrossAttnTransformer
+from ips_tpu.ops import score_kernel as jsk
+from ips_tpu_torch.ops import score_kernel as tsk
+
+B, L, D, H, DK, T = 2, 40, 32, 4, 8, 3
+
+
+@pytest.fixture(scope="module")
+def folded():
+    """JAX transformer params, numpy embeddings, and both W_eff."""
+    m = CrossAttnTransformer(n_token=T, H=H, D=D, D_k=DK, D_v=DK,
+                             D_inner=64)
+    x = np.random.default_rng(0).standard_normal((B, L, D), np.float32)
+    variables = m.init(jax.random.PRNGKey(1), jnp.asarray(x))
+    att = variables["params"]["crs_attn"]
+    j_w = jsk.fold_query(att["q"], att["q_w"]["kernel"],
+                         att["k_w"]["kernel"], H, DK)
+    q, wq, wk = (torch.from_numpy(np.array(a)) for a in (
+        att["q"], att["q_w"]["kernel"], att["k_w"]["kernel"]))
+    t_w = tsk.fold_query(q, wq, wk, H, DK)
+    return m, variables, x, np.asarray(j_w), t_w
+
+
+def _masks():
+    mask = np.ones((B, L), bool)
+    mask[0, -5:] = False
+    mask[1, :3] = False
+    full = mask.copy()
+    full[1] = False                     # one fully masked row
+    return [None, mask, full]
+
+
+def test_fold_query_matches(folded):
+    _, _, _, j_w, t_w = folded
+    np.testing.assert_allclose(t_w.numpy(), j_w, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("mask_i", range(3))
+def test_fast_scores_match_jax(folded, mask_i):
+    _, _, x, j_w, t_w = folded
+    mask = _masks()[mask_i]
+    ref = np.asarray(jsk.fast_scores(
+        jnp.asarray(x), jnp.asarray(j_w),
+        None if mask is None else jnp.asarray(mask)))
+    tm = None if mask is None else torch.from_numpy(mask)
+    got = tsk.fast_scores(torch.from_numpy(x), t_w, tm).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+    kern = tsk.scores(torch.from_numpy(x), t_w, tm).numpy()
+    np.testing.assert_allclose(kern, ref, rtol=1e-5, atol=1e-6)
+
+
+# Pallas' epilogue adds NEG_INF as a bias, so a fully masked row there
+# keeps the unmasked softmax (softmax is shift-invariant); fast_scores and
+# the port replace the logits and give a uniform row, checked above.
+@pytest.mark.parametrize("mask_i", range(2))
+def test_scores_match_pallas_interpret(folded, mask_i):
+    _, _, x, j_w, t_w = folded
+    mask = _masks()[mask_i]
+    ref = np.asarray(jsk.pallas_scores(
+        jnp.asarray(x), jnp.asarray(j_w),
+        None if mask is None else jnp.asarray(mask), interpret=True))
+    tm = None if mask is None else torch.from_numpy(mask)
+    got = tsk.scores(torch.from_numpy(x), t_w, tm).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_fully_masked_row_is_uniform(folded):
+    _, _, x, _, t_w = folded
+    mask = torch.from_numpy(_masks()[2])
+    got = tsk.scores(torch.from_numpy(x), t_w, mask)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got[1], torch.full((L,), 1.0 / L),
+                               rtol=1e-6, atol=0.0)
+
+
+def test_scores_match_attention_path(folded):
+    m, variables, x, _, t_w = folded
+    ref = np.asarray(m.apply(variables, jnp.asarray(x),
+                             method=CrossAttnTransformer.get_scores))
+    got = tsk.scores(torch.from_numpy(x), t_w).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", [(1, 10000, 512, 8), (2, 37, 16, 12),
+                                   (4, 1037, 128, 32)],
+                         ids=["tiled_camelyon", "unaligned", "ragged"])
+def test_tiled_and_unaligned_match_pallas(shape):
+    b, l, d, th = shape
+    rng = np.random.default_rng(sum(shape))
+    x = rng.standard_normal((b, l, d), np.float32)
+    w = 0.1 * rng.standard_normal((d, th), np.float32)
+    ref = np.asarray(jsk.pallas_scores(jnp.asarray(x), jnp.asarray(w),
+                                       interpret=True))
+    got = tsk.scores(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-6)
+
+
+def test_logits_plain_on_cpu_counts_nothing():
+    x = torch.randn(2, 5, 8, generator=torch.Generator().manual_seed(0))
+    w = torch.randn(8, 4, generator=torch.Generator().manual_seed(1))
+    before = tsk.logits.launches
+    out = tsk.logits(x, w)
+    assert out.dtype == torch.float32 and out.shape == (2, 5, 4)
+    torch.testing.assert_close(out, x @ w)
+    assert tsk.logits.launches == before
+
+
+def test_logits_rejects_other_devices():
+    x = torch.empty(2, 5, 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tsk.logits(x, torch.empty(8, 4, device="meta"))
