@@ -7,7 +7,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
 ``nvidia-smi``. It imports nothing of JAX or of the JAX package. Phases:
 
   1. device  — the card's name and power limit;
-  2. build   — ``nvcc`` builds every kernel of the path from csrc/;
+  2. build   — ``nvcc`` builds every kernel from csrc/, all at once;
   3. kernels — each kernel against its plain PyTorch version at the
                shapes of the main path (and of later paths), with stated
                tolerances; CUDA-event times of kernel, plain version and
@@ -17,7 +17,13 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                seed), several requests, launch counts and output checks,
                and the same selection with the plain scorer;
   5. cli     — ``ips_tpu_torch.infer.main`` on two .npy inputs and a
-               ``torch.save`` checkpoint in a temporary directory.
+               ``torch.save`` checkpoint in a temporary directory;
+  6. conv_probe — the fused BasicBlock kernel against its plain version
+               at the layer1 shapes (1600, 13, 13, 64), paired
+               (800, 13, 13, 128) and a ragged one, with device times of
+               kernel, plain version and the cuDNN yardstick; then the
+               layer1 conv probe (``ips_tpu_torch.scripts.probe_conv``)
+               at its real shape, its kernel launches counted.
 
 Any failed phase raises, so the script exits non-zero. The line before
 the last is a JSON object with one entry per kernel; the last line is
@@ -67,15 +73,16 @@ MNIST_CONFIG = {
 SEED = 0
 N_REQUESTS = 4
 
-# H100 SXM published peaks (NVIDIA data sheet, dense, 700 W).
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
-
 # Kernel vs plain tolerances. Both accumulate the same fp32 products (bf16
 # inputs are widened exactly), in another order: logits of magnitude ~1
 # summed over D <= 512 terms differ by a few fp32 ulps of the partial sums.
 LOGITS_RTOL, LOGITS_ATOL = 1e-5, 1e-4
 SCORES_RTOL, SCORES_ATOL = 1e-4, 1e-6
+# Fused block vs plain: the same exact bf16 products summed in fp32 in
+# another order, then h and the output rounded to bf16, so a rounding can
+# move by one bf16 ulp: at most 2^-7 |y|, 1.6e-2 for |y| < 4.
+BLOCK_RTOL, BLOCK_ATOL = 1.6e-2, 1.6e-2
+KERNELS = ("score_logits", "conv_block")
 
 
 def log(msg: str) -> None:
@@ -100,65 +107,14 @@ class Phase:
         return False
 
 
-def cuda_ms(torch, fn, iters: int = 200, warmup: int = 20) -> float:
-    """Mean time of one call of ``fn`` in ms, from CUDA events around a run
-    of ``iters`` back-to-back calls after ``warmup`` calls. Where one call
-    enqueues less device work than the host takes to issue it, this is the
-    host's issue rate, not the device's time."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_kernels(torch, fn, iters: int = 1):
-    """Run ``fn`` ``iters`` times under torch.profiler (CUPTI); returns
-    {kernel name: (total device us, count)} over the device-side events."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us, n = out.get(e.name, (0.0, 0))
-            out[e.name] = (us + e.device_time_total, n + 1)
-    return out
-
-
-def device_ms(torch, fn, iters: int = 50, warmup: int = 20):
-    """Device time of one call of ``fn`` in ms: the summed durations of the
-    kernels it launches (gaps between them excluded), from the profiler.
-    Inputs stay in L2, as they do in the selection loop, where the scored
-    tensor was just written. None if the profiler saw no device event."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    kernels = device_kernels(torch, fn, iters)
-    if not kernels:
-        return None
-    return sum(us for us, _ in kernels.values()) / iters / 1e3
-
-
 def logits_bound(B, L, D, TH, dtype_name):
     """Least time on the card in ms, and what sets it: bytes (x and W_eff
     read once, fp32 logits written once) over the HBM rate, or FLOPs over
     the peak rate of x's type."""
+    from ips_tpu_torch.utils.timing import bound_ms
     item = 4 if dtype_name == "float32" else 2
     nbytes = B * L * D * item + D * TH * item + B * L * TH * 4
-    bytes_ms = 1e3 * nbytes / HBM_BYTES_PER_S
-    ops_ms = 1e3 * 2 * B * L * D * TH / PEAK_FLOPS[dtype_name]
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
-                                   else "operations")
+    return bound_ms(nbytes, 2 * B * L * D * TH, dtype_name)
 
 
 def phase_device(torch):
@@ -175,20 +131,26 @@ def phase_device(torch):
 
 
 def phase_build():
+    """One nvcc per kernel source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
     from ips_tpu_torch.utils.cuda_build import build_library
     t0 = time.perf_counter()
-    path, out = build_library("score_logits")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = list(pool.map(build_library, KERNELS))
     dt = time.perf_counter() - t0
-    for line in out.splitlines():
-        if line.strip():
-            log(f"  nvcc: {line.strip()}")
-    log(f"built {os.path.relpath(path)} in {dt:.2f} s")
+    for path, out in built:
+        for line in out.splitlines():
+            if line.strip():
+                log(f"  nvcc: {line.strip()}")
+        log(f"built {os.path.relpath(path)}")
+    log(f"built {len(built)} kernels in {dt:.2f} s")
 
 
 def phase_kernels(torch, np, device):
     """score_logits against its plain version; returns the JSON entry for
     the main-path shape."""
     from ips_tpu_torch.ops import score_kernel as sk
+    from ips_tpu_torch.utils.timing import cuda_ms, device_ms
     rng = np.random.default_rng(SEED)
     # (name, B, L, D, TH, dtype): the MNIST selection shape first (the
     # main path scores (16, M+I=200, 128) against T*H = 4*8 = 32), a ragged
@@ -222,8 +184,8 @@ def phase_kernels(torch, np, device):
             "scores plain": lambda: sk.fast_scores(x, w),
             "scores matmul+softmax yardstick": lambda: torch.softmax(
                 torch.matmul(x, w).float(), dim=1).mean(-1)}
-        host = {k: cuda_ms(torch, f) for k, f in fns.items()}
-        dev = {k: device_ms(torch, f) for k, f in fns.items()}
+        host = {k: cuda_ms(f) for k, f in fns.items()}
+        dev = {k: device_ms(f) for k, f in fns.items()}
         if None in dev.values():            # no CUPTI: fall back to events
             log("    the profiler saw no device kernels: times below are "
                 "CUDA-event times of back-to-back calls")
@@ -416,7 +378,8 @@ def _category(name: str) -> str:
 def breakdown(torch, request, wall_s):
     """Device time of one profiled request, by kernel category; the idle
     share is against the unprofiled steady request time."""
-    kernels = device_kernels(torch, request)
+    from ips_tpu_torch.utils.timing import device_kernels
+    kernels = device_kernels(request)
     if not kernels:
         log("  breakdown: the profiler saw no device kernels")
         return
@@ -469,6 +432,100 @@ def phase_cli(torch, np, pred, patches):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def phase_conv_probe(torch, np, device, card, pred):
+    """conv_block against its plain version, the main path's own layer1
+    timed at the same shape, then the layer1 probe with the kernel's
+    launches counted; returns the kernel's JSON entry at the unpaired
+    layer1 shape."""
+    from ips_tpu_torch.ops import conv_block as cb
+    from ips_tpu_torch.scripts import probe_conv as pc
+    from ips_tpu_torch.utils.timing import bound_ms, cuda_ms, device_ms
+    # (name, n, s, c, paired): layer1's chunk of 1600 patches of 13x13x64,
+    # the TPU kernel's pair-packed layout (block-diagonal weights), and a
+    # ragged shape
+    cases = [("layer1", 1600, 13, 64, False),
+             ("layer1 paired", 800, 13, 128, True),
+             ("ragged", 37, 7, 64, False)]
+    entry = None
+    for name, n, s, c, paired in cases:
+        rng = np.random.default_rng(SEED + 2)
+        x = torch.from_numpy(0.5 * rng.standard_normal((n, s, s, c),
+                                                        np.float32))
+        x = x.to(device, torch.bfloat16)
+        p = pc.make_block_params(SEED + 2, c // 2 if paired else c, device)
+        if paired:
+            p = pc.pair_params(p, c // 2)
+        q = cb.kernel_params(p)
+        got = cb.fused_block(x, q)
+        want = cb.plain_fused_block(x, q)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=BLOCK_RTOL, atol=BLOCK_ATOL)
+        nbytes = 2 * (2 * n * s * s * c) + 2 * (9 * c * c * 2) + 4 * c * 4
+        bound, bound_by = bound_ms(nbytes, 2 * n * s * s * 9 * c * c * 2,
+                                   "bfloat16")
+        log(f"  conv_block {name} ({n}, {s}, {s}, {c}): max|err| {err:.3e} "
+            f"(rtol {BLOCK_RTOL}, atol {BLOCK_ATOL}); bound "
+            f"{bound * 1e3:.2f} us ({bound_by})")
+        if name == "ragged":
+            continue
+        cp = pc.cudnn_params(p)
+        fns = {"kernel": lambda: cb.fused_block(x, q),
+               "plain": lambda: cb.plain_fused_block(x, q),
+               "cudnn_conv block": lambda: pc.block_cudnn(x, cp)}
+        dev = {k: device_ms(f, iters=20, warmup=5) for k, f in fns.items()}
+        host = {k: cuda_ms(f, iters=20, warmup=5) for k, f in fns.items()}
+        if None in dev.values():            # no CUPTI: fall back to events
+            log("    the profiler saw no device kernels: times below are "
+                "CUDA-event times of back-to-back calls")
+            dev = host
+        for k in fns:
+            log(f"    {k}: device {dev[k] * 1e3:.2f} us, per call in a "
+                f"back-to-back loop {host[k] * 1e3:.2f} us")
+        if name == "layer1":
+            # the main path's layer1 as the encoder runs it: fp32
+            # activations in, bf16 cuDNN convs, fp32 BatchNorm and ReLU
+            enc = pred.trainer.model.encoder
+            x32 = x.float().permute(0, 3, 1, 2)     # channels_last view
+
+            def encoder_layer1():
+                with torch.inference_mode():
+                    return enc.layer1_block1(enc.layer1_block0(x32))
+            enc_ms = device_ms(encoder_layer1, iters=20, warmup=5)
+            enc_ev = cuda_ms(encoder_layer1, iters=20, warmup=5)
+            log("    main path's encoder layer1 (two blocks): device "
+                + ("not measured" if enc_ms is None
+                   else f"{enc_ms * 1e3:.2f} us")
+                + f", per call in a back-to-back loop {enc_ev * 1e3:.2f} us")
+        if entry is None:
+            entry = {
+                "name": "conv_block", "route": "cuda",
+                "source": "ips_tpu_torch/csrc/conv_block.cu",
+                "replaces": "scripts/probe_conv.py:177",
+                "launches": None, "max_abs_err": err, "ms": dev["kernel"],
+                "plain_ms": dev["plain"], "bound_ms": bound,
+                "bound_by": bound_by,
+                "library_ms": dev["cudnn_conv block"],
+                "shape": [n, s, s, c]}
+
+    # the probe at its real shape: the path whose launches are counted
+    cb.fused_block.launches = 0
+    out = pc.main(["--device", str(device)])
+    launches = cb.fused_block.launches
+    if launches == 0:
+        raise AssertionError("the probe never launched the fused kernel")
+    log(f"  probe {out['shape']}: layer1 bound {out['bound_ms'] * 1e3:.2f} "
+        f"us ({out['bound_by']}), paired {out['paired_bound_ms'] * 1e3:.2f}"
+        f" us; {launches} kernel launches; card {card}")
+    for vname, row in out["variants"].items():
+        log(f"    {vname}: device {row['ms']} ms, events "
+            f"{row['event_ms']:.4f} ms, {row['tf_s']} TF/s useful, max|err| "
+            f"{row['max_abs_err']:.3e} (replaces {row['replaces']})")
+    entry["launches"] = launches
+    return entry
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -495,8 +552,10 @@ def main() -> int:
     with Phase("cli"):
         phase_cli(torch, np, pred, patches)
     entry["launches"] = launches
+    with Phase("conv_probe"):
+        conv_entry = phase_conv_probe(torch, np, device, card, pred)
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": [entry, conv_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,7 +4,10 @@ Selection), written for an NVIDIA H100.
 ``ips_tpu`` (JAX) stays the reference; each module here mirrors the
 module of the same name there. Ported so far: inference
 (:class:`ips_tpu_torch.infer.Predictor`), with the saliency scorer's
-logits GEMM as a hand-written CUDA kernel (``csrc/score_logits.cu``).
+logits GEMM as a hand-written CUDA kernel (``csrc/score_logits.cu``), and
+the layer1 conv probe (``ips_tpu_torch.scripts.probe_conv``, counterpart
+of ``scripts/probe_conv.py``) with its fused BasicBlock kernel
+(``csrc/conv_block.cu``).
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``.
 """
 

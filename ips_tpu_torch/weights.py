@@ -127,3 +127,21 @@ def load_jax(model: nn.Module, params: Mapping[str, Any],
 def save_npz(model: nn.Module, path: str) -> None:
     """Write the port's weights as a flat reference-named ``.npz``."""
     np.savez(path, **to_flat(model))
+
+
+def block_params_from_reference(ref: Mapping[str, np.ndarray],
+                                device: Union[str, torch.device] = "cpu"
+                                ) -> Dict[str, torch.Tensor]:
+    """The conv probe's BasicBlock parameters (scripts/probe_conv.py:
+    ``make_block_params``, as numpy arrays) -> the port's tensors, same
+    names and layouts: ``w1``, ``w2`` (3, 3, c, c) HWIO stay bf16 (their
+    values are exact in fp32 on the way), ``s1``, ``b1``, ``s2``, ``b2``
+    (c,) fp32."""
+    out = {}
+    for k, a in ref.items():
+        a = np.asarray(a)
+        t = torch.from_numpy(np.array(a, np.float32))
+        if a.dtype.name == "bfloat16":
+            t = t.to(torch.bfloat16)
+        out[k] = t.to(device)
+    return out

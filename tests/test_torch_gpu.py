@@ -85,3 +85,63 @@ def test_predictor_defaults_to_card_and_uses_kernel(cuda):
     cpu = Predictor(conf, trainer=pred.trainer, device="cpu").predict(x)
     np.testing.assert_array_equal(out["selected_idx"], cpu["selected_idx"])
     np.testing.assert_allclose(out["t"], cpu["t"], rtol=1e-4, atol=1e-5)
+
+
+# ---------------------------------------------------- fused BasicBlock kernel
+# Both sides accumulate the same exact bf16 products in fp32 (the kernel on
+# tensor cores, in another order), then round h and the output to bf16: an
+# fp32 difference can move a rounding by one bf16 ulp, 1.6e-2 for |y| < 4.
+BLOCK_TOL = 1.6e-2
+
+
+def _block_inputs(device, n, s, c, seed=0, block_diag=False):
+    from ips_tpu_torch.ops.conv_block import kernel_params
+    from ips_tpu_torch.scripts.probe_conv import make_block_params, pair_params
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(0.5 * rng.standard_normal((n, s, s, c), np.float32))
+    if block_diag:
+        p = pair_params(make_block_params(seed, c // 2), c // 2)
+    else:
+        p = make_block_params(seed, c)
+    q = {k: v.to(device) for k, v in kernel_params(p).items()}
+    return x.to(device, torch.bfloat16), q
+
+
+@pytest.mark.parametrize("n,s,c,block_diag", [
+    (1600, 13, 64, False), (800, 13, 128, True), (800, 13, 128, False),
+    (37, 7, 64, False), (5, 16, 128, False), (3, 1, 32, False),
+    (19, 11, 32, False)])
+def test_fused_block_matches_plain(cuda, n, s, c, block_diag):
+    from ips_tpu_torch.ops import conv_block as cb
+    x, q = _block_inputs(cuda, n, s, c, block_diag=block_diag)
+    before = cb.fused_block.launches
+    got = cb.fused_block(x, q)
+    assert cb.fused_block.launches == before + 1
+    want = cb.plain_fused_block(x, q)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=BLOCK_TOL,
+                               atol=BLOCK_TOL, msg=f"max abs err {err}")
+
+
+def test_fused_block_deterministic(cuda):
+    from ips_tpu_torch.ops import conv_block as cb
+    x, q = _block_inputs(cuda, 64, 13, 128, seed=3)
+    assert torch.equal(cb.fused_block(x, q), cb.fused_block(x, q))
+
+
+def test_fused_block_rejects(cuda):
+    from ips_tpu_torch.ops import conv_block as cb
+    x, q = _block_inputs(cuda, 4, 5, 64)
+    with pytest.raises(ValueError, match="bf16"):
+        cb.fused_block(x.float(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        cb.fused_block(x.transpose(1, 2), q)
+    with pytest.raises(ValueError, match="out of range"):
+        cb.fused_block(*_block_inputs(cuda, 2, 5, 256))
+    with pytest.raises(ValueError, match="out of range"):
+        cb.fused_block(*_block_inputs(cuda, 2, 17, 64))
+    with pytest.raises(ValueError, match="out of range"):
+        cb.fused_block(*_block_inputs(cuda, 2, 5, 48))
+    with pytest.raises(ValueError, match="one device"):
+        cb.fused_block(x, {**q, "s1": q["s1"].cpu()})

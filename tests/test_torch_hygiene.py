@@ -31,7 +31,11 @@ def _imported_roots(path):
 
 def test_sources_found():
     assert len(SOURCES) > 10
-    assert any(p.endswith("score_kernel.py") for p in SOURCES)
+    rel = {os.path.relpath(p, REPO) for p in SOURCES}
+    assert {"ips_tpu_torch/ops/score_kernel.py",
+            "ips_tpu_torch/ops/conv_block.py",
+            "ips_tpu_torch/scripts/probe_conv.py",
+            "ips_tpu_torch/utils/timing.py"} <= rel
 
 
 @pytest.mark.parametrize("path", SOURCES,
