@@ -7,7 +7,9 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
 ``nvidia-smi``. It imports nothing of JAX or of the JAX package. Phases:
 
   1. device  — the card's name and power limit;
-  2. build   — ``nvcc`` builds every kernel from csrc/, all at once;
+  2. build   — ``nvcc`` builds every kernel from csrc/, all at once, and
+               prints each instantiation's registers, shared memory and
+               spills (``-Xptxas -v``);
   3. kernels — each kernel against its plain PyTorch version at the
                shapes of the main path (and of later paths), with stated
                tolerances; CUDA-event times of kernel, plain version and
@@ -20,8 +22,9 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                ``torch.save`` checkpoint in a temporary directory;
   6. conv_probe — the fused BasicBlock kernel against its plain version
                at the layer1 shapes (1600, 13, 13, 64), paired
-               (800, 13, 13, 128) and a ragged one, with device times of
-               kernel, plain version and the cuDNN yardstick; then the
+               (800, 13, 13, 128), a ragged one and layer2_block1's
+               (1600, 7, 7, 128), with device times of kernel, plain
+               version and the cuDNN yardstick; then the
                layer1 conv probe (``ips_tpu_torch.scripts.probe_conv``)
                at its real shape, its kernel launches counted.
 
@@ -107,16 +110,6 @@ class Phase:
         return False
 
 
-def logits_bound(B, L, D, TH, dtype_name):
-    """Least time on the card in ms, and what sets it: bytes (x and W_eff
-    read once, fp32 logits written once) over the HBM rate, or FLOPs over
-    the peak rate of x's type."""
-    from ips_tpu_torch.utils.timing import bound_ms
-    item = 4 if dtype_name == "float32" else 2
-    nbytes = B * L * D * item + D * TH * item + B * L * TH * 4
-    return bound_ms(nbytes, 2 * B * L * D * TH, dtype_name)
-
-
 def phase_device(torch):
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -130,6 +123,23 @@ def phase_device(torch):
     return name, card
 
 
+def ptxas_resources(nvcc_out):
+    """One line per kernel instantiation from nvcc's -Xptxas -v report:
+    its (mangled) name, registers, shared memory, stack and spills."""
+    lines, name, props = [], None, ""
+    for raw in nvcc_out.splitlines():
+        line = raw.strip()
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "bytes stack frame" in line:
+            props = line
+        elif line.startswith("ptxas info") and "Used" in line and name:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}; "
+                         f"{props}")
+            name, props = None, ""
+    return lines
+
+
 def phase_build():
     """One nvcc per kernel source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
@@ -139,9 +149,12 @@ def phase_build():
         built = list(pool.map(build_library, KERNELS))
     dt = time.perf_counter() - t0
     for path, out in built:
-        for line in out.splitlines():
-            if line.strip():
-                log(f"  nvcc: {line.strip()}")
+        for line in ptxas_resources(out):
+            log(f"  ptxas: {line}")
+        for line in out.splitlines():      # warnings and the like
+            if line.strip() and not line.lstrip().startswith(
+                    "ptxas info") and "bytes stack frame" not in line:
+                log(f"  nvcc: {line.rstrip()}")
         log(f"built {os.path.relpath(path)}")
     log(f"built {len(built)} kernels in {dt:.2f} s")
 
@@ -150,15 +163,11 @@ def phase_kernels(torch, np, device):
     """score_logits against its plain version; returns the JSON entry for
     the main-path shape."""
     from ips_tpu_torch.ops import score_kernel as sk
+    from ips_tpu_torch.scripts.kernel_times import LOGITS_CASES, logits_bound
     from ips_tpu_torch.utils.timing import cuda_ms, device_ms
     rng = np.random.default_rng(SEED)
-    # (name, B, L, D, TH, dtype): the MNIST selection shape first (the
-    # main path scores (16, M+I=200, 128) against T*H = 4*8 = 32), a ragged
-    # L, and the camelyon feature-mode shape (L = M+I = 10000, T*H = 8)
-    cases = [("mnist", 16, 200, 128, 32, "float32"),
-             ("mnist", 16, 200, 128, 32, "bfloat16"),
-             ("ragged", 4, 1037, 128, 32, "float32"),
-             ("camelyon", 1, 10000, 512, 8, "bfloat16")]
+    # the timed shapes, the MNIST selection shape first, and a ragged L
+    cases = LOGITS_CASES + (("ragged", 4, 1037, 128, 32, "float32"),)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     main_entry = None
     for name, B, L, D, TH, dt in cases:
@@ -361,7 +370,8 @@ def phase_predict(torch, np, device, card):
 
 def _category(name: str) -> str:
     n = name.lower()
-    for cat, keys in (("score_logits kernel", ("score_logits",)),
+    for cat, keys in (("score_logits kernel", ("score_logits",
+                                               "logits_f32", "logits_bf16")),
                       ("memcpy/memset", ("memcpy", "memset")),
                       ("convolution", ("conv", "cudnn", "xmma", "fprop",
                                        "implicit")),
@@ -439,13 +449,10 @@ def phase_conv_probe(torch, np, device, card, pred):
     layer1 shape."""
     from ips_tpu_torch.ops import conv_block as cb
     from ips_tpu_torch.scripts import probe_conv as pc
-    from ips_tpu_torch.utils.timing import bound_ms, cuda_ms, device_ms
-    # (name, n, s, c, paired): layer1's chunk of 1600 patches of 13x13x64,
-    # the TPU kernel's pair-packed layout (block-diagonal weights), and a
-    # ragged shape
-    cases = [("layer1", 1600, 13, 64, False),
-             ("layer1 paired", 800, 13, 128, True),
-             ("ragged", 37, 7, 64, False)]
+    from ips_tpu_torch.scripts.kernel_times import BLOCK_CASES, block_bound
+    from ips_tpu_torch.utils.timing import cuda_ms, device_ms
+    # the timed shapes, layer1's first, and a ragged one (checked only)
+    cases = BLOCK_CASES + (("ragged", 37, 7, 64, False),)
     entry = None
     for name, n, s, c, paired in cases:
         rng = np.random.default_rng(SEED + 2)
@@ -462,11 +469,12 @@ def phase_conv_probe(torch, np, device, card, pred):
         err = (got.float() - want.float()).abs().max().item()
         torch.testing.assert_close(got.float(), want.float(),
                                    rtol=BLOCK_RTOL, atol=BLOCK_ATOL)
-        nbytes = 2 * (2 * n * s * s * c) + 2 * (9 * c * c * 2) + 4 * c * 4
-        bound, bound_by = bound_ms(nbytes, 2 * n * s * s * 9 * c * c * 2,
-                                   "bfloat16")
+        if not torch.equal(cb.fused_block(x, q), got):
+            raise AssertionError(f"conv_block {name}: two launches differ")
+        bound, bound_by = block_bound(n, s, c)
         log(f"  conv_block {name} ({n}, {s}, {s}, {c}): max|err| {err:.3e} "
-            f"(rtol {BLOCK_RTOL}, atol {BLOCK_ATOL}); bound "
+            f"(rtol {BLOCK_RTOL}, atol {BLOCK_ATOL}), two launches "
+            f"bitwise equal; bound "
             f"{bound * 1e3:.2f} us ({bound_by})")
         if name == "ragged":
             continue

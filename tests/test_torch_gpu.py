@@ -43,6 +43,38 @@ def test_kernel_matches_plain(cuda, B, L, D, TH, dtype):
                                atol=1e-4)
 
 
+# The redesigned kernel's paths: D in 16-byte vectors or element by element
+# (37), one D chunk or several (fp32 chunks of 128, bf16 of 256 or 512),
+# every TH rounding (1, 8, 12, 32, 64), a ragged last row tile (L=37, 203)
+# and B = 1 or 16, in both types.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D", [16, 37, 128, 512])
+@pytest.mark.parametrize("TH", [1, 8, 12, 32, 64])
+@pytest.mark.parametrize("B,L", [(1, 37), (16, 203)])
+def test_kernel_shapes(cuda, B, L, D, TH, dtype):
+    x, w = _inputs(cuda, B, L, D, TH, dtype)
+    before = sk.logits.launches
+    got = sk.logits(x, w)
+    assert sk.logits.launches == before + 1
+    torch.testing.assert_close(got, sk.plain_logits(x, w), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_kernel_misaligned_x(cuda, dtype):
+    # a contiguous x whose data starts off a 16-byte boundary takes the
+    # element-by-element copies
+    x, w = _inputs(cuda, 3, 45, 128, 32, dtype)
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    xs = buf[1:].view(x.shape)
+    xs.copy_(x)
+    assert xs.is_contiguous() and xs.data_ptr() % 16 != 0
+    torch.testing.assert_close(sk.logits(xs, w), sk.plain_logits(x, w),
+                               rtol=1e-5, atol=1e-4)
+
+
 def test_kernel_scores_masked(cuda):
     x, w = _inputs(cuda, 4, 200, 128, 32, torch.float32, seed=1)
     mask = torch.ones((4, 200), dtype=torch.bool, device=cuda)
@@ -127,6 +159,33 @@ def test_fused_block_matches_plain(cuda, n, s, c, block_diag):
 def test_fused_block_deterministic(cuda):
     from ips_tpu_torch.ops import conv_block as cb
     x, q = _block_inputs(cuda, 64, 13, 128, seed=3)
+    assert torch.equal(cb.fused_block(x, q), cb.fused_block(x, q))
+
+
+# The persistent grid is min(n, SMs): n below, at and past 132 (an H100's
+# SM count), and the layer1 chunk; s=16 at c=64 and c=128 take one
+# activation buffer, s <= 13 two; c=128 streams its weights, c <= 64 keeps
+# them resident; (1600, 7, 7, 128) is layer2_block1's chunk.
+@pytest.mark.parametrize("n,s,c", [
+    (1, 13, 64), (131, 13, 64), (132, 13, 64), (133, 13, 64),
+    (1600, 13, 64), (140, 16, 64), (140, 16, 128), (1600, 7, 128),
+    (300, 13, 32), (2, 16, 32), (133, 14, 128)])
+def test_fused_block_persistent(cuda, n, s, c):
+    from ips_tpu_torch.ops import conv_block as cb
+    x, q = _block_inputs(cuda, n, s, c, seed=n + s + c)
+    got = cb.fused_block(x, q)
+    want = cb.plain_fused_block(x, q)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), rtol=BLOCK_TOL,
+                               atol=BLOCK_TOL, msg=f"max abs err {err}")
+
+
+@pytest.mark.parametrize("n,s,c", [(1600, 13, 64), (800, 13, 128),
+                                   (1600, 7, 128)])
+def test_fused_block_deterministic_persistent(cuda, n, s, c):
+    from ips_tpu_torch.ops import conv_block as cb
+    x, q = _block_inputs(cuda, n, s, c, seed=5)
     assert torch.equal(cb.fused_block(x, q), cb.fused_block(x, q))
 
 

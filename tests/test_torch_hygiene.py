@@ -35,6 +35,7 @@ def test_sources_found():
     assert {"ips_tpu_torch/ops/score_kernel.py",
             "ips_tpu_torch/ops/conv_block.py",
             "ips_tpu_torch/scripts/probe_conv.py",
+            "ips_tpu_torch/scripts/kernel_times.py",
             "ips_tpu_torch/utils/timing.py"} <= rel
 
 

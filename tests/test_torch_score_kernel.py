@@ -124,3 +124,31 @@ def test_logits_rejects_other_devices():
     x = torch.empty(2, 5, 8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         tsk.logits(x, torch.empty(8, 4, device="meta"))
+
+
+def test_kernel_times_needs_a_card(monkeypatch, capsys):
+    """The timing script measures device times only: without a card it
+    refuses (exit code 1) and prints no measurement."""
+    from ips_tpu_torch.scripts import kernel_times
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert kernel_times.main() == 1
+    assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("case,want_us,by", [
+    (("score_logits", 16, 200, 128, 32, "float32"), 0.616, "bytes"),
+    (("score_logits", 1, 10000, 512, 8, "bfloat16"), 3.155, "bytes"),
+    (("conv_block", 1600, 13, 64), 40.32, "operations"),
+    (("conv_block", 1600, 7, 128), 46.76, "operations")],
+    ids=["logits_mnist", "logits_camelyon", "block_layer1",
+         "block_layer2"])
+def test_kernel_bounds(case, want_us, by):
+    """The least times the timing script and chip_smoke.py report, at the
+    paths' shapes: H100 data-sheet rates (3.35 TB/s, 67 TFLOP/s fp32, 989
+    TFLOP/s bf16)."""
+    from ips_tpu_torch.scripts import kernel_times
+    fn = (kernel_times.logits_bound if case[0] == "score_logits"
+          else kernel_times.block_bound)
+    ms, got_by = fn(*case[1:])
+    assert got_by == by
+    assert ms * 1e3 == pytest.approx(want_us, abs=5e-3)
