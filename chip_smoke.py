@@ -18,9 +18,17 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                width (config/mnist_config.yml, random weights from the
                seed), several requests, launch counts and output checks,
                and the same selection with the plain scorer;
-  5. cli     — ``ips_tpu_torch.infer.main`` on two .npy inputs and a
+  5. train   — the training path: ``IPSTrainer.fused_multi_step`` at the
+               same full width (K = steps_per_dispatch = 8 steps a call,
+               dropout 0.1, shuffle), step time, peak memory and
+               ``score_logits`` launches per step (8); an overfit check of
+               20 ``fused_step``s on one batch; one small fp32 step scored
+               by the kernel held against the same step scored by the
+               plain version on the card and on the CPU; a profiler
+               breakdown of one full-width step;
+  6. cli     — ``ips_tpu_torch.infer.main`` on two .npy inputs and a
                ``torch.save`` checkpoint in a temporary directory;
-  6. conv_probe — the fused BasicBlock kernel against its plain version
+  7. conv_probe — the fused BasicBlock kernel against its plain version
                at the layer1 shapes (1600, 13, 13, 64), paired
                (800, 13, 13, 128), a ragged one and layer2_block1's
                (1600, 7, 7, 128), with device times of kernel, plain
@@ -75,6 +83,10 @@ MNIST_CONFIG = {
 
 SEED = 0
 N_REQUESTS = 4
+N_TIMED_DISPATCHES = 3      # timed fused_multi_step calls after a warm-up
+N_OVERFIT_STEPS = 20
+# megapixel MNIST's training set (ips_tpu/data/mnist.py: n_train=5000)
+MNIST_TRAIN_IMAGES = 5000
 
 # Kernel vs plain tolerances. Both accumulate the same fp32 products (bf16
 # inputs are widened exactly), in another order: logits of magnitude ~1
@@ -237,9 +249,9 @@ def phase_kernels(torch, np, device):
     return main_entry
 
 
-def make_patches(np, conf):
+def make_patches(np, conf, seed=SEED + 1):
     """A megapixel-MNIST-like batch: most patches blank, the rest random."""
-    rng = np.random.default_rng(SEED + 1)
+    rng = np.random.default_rng(seed)
     ph, pw = conf.patch_size
     shape = (conf.B, conf.N, ph, pw, conf.n_chan_in)
     patches = rng.random(shape, dtype=np.float32)
@@ -372,6 +384,7 @@ def _category(name: str) -> str:
     n = name.lower()
     for cat, keys in (("score_logits kernel", ("score_logits",
                                                "logits_f32", "logits_bf16")),
+                      ("optimizer (AdamW)", ("multi_tensor", "adam")),
                       ("memcpy/memset", ("memcpy", "memset")),
                       ("convolution", ("conv", "cudnn", "xmma", "fprop",
                                        "implicit")),
@@ -385,9 +398,9 @@ def _category(name: str) -> str:
     return "elementwise/other"
 
 
-def breakdown(torch, request, wall_s):
-    """Device time of one profiled request, by kernel category; the idle
-    share is against the unprofiled steady request time."""
+def breakdown(torch, request, wall_s, what="request"):
+    """Device time of one profiled call of ``request``, by kernel
+    category; the idle share is against the unprofiled steady time."""
     from ips_tpu_torch.utils.timing import device_kernels
     kernels = device_kernels(request)
     if not kernels:
@@ -399,7 +412,7 @@ def breakdown(torch, request, wall_s):
         c = cats.setdefault(_category(name), [0.0, 0])
         c[0] += us / 1e3
         c[1] += n
-    log(f"  device busy {busy_ms:.2f} ms of a {wall_s * 1e3:.2f} ms request"
+    log(f"  device busy {busy_ms:.2f} ms of a {wall_s * 1e3:.2f} ms {what}"
         f" (idle share {1 - busy_ms / (wall_s * 1e3):.3f}); "
         f"{sum(n for _, n in kernels.values())} device ops")
     for cat, (ms, n) in sorted(cats.items(), key=lambda kv: -kv[1][0]):
@@ -407,6 +420,156 @@ def breakdown(torch, request, wall_s):
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (us, n) in top:
         log(f"    top: {us / 1e3:.3f} ms x{n} {name[:90]}")
+
+
+def train_batches(torch, np, conf, K, device):
+    """K stacked training batches on the card: patches as make_patches
+    makes them (another seed per batch, stored bf16 as the config asks),
+    random labels for the softmax tasks, random 0/1 for the sigmoid ones,
+    weights all 1."""
+    rng = np.random.default_rng(SEED + 3)
+    patches = torch.stack([
+        torch.from_numpy(make_patches(np, conf, SEED + 10 + k)).to(
+            device, torch.bfloat16) for k in range(K)])
+    labels = {}
+    for task in conf.task_list:
+        labels[task.name] = torch.from_numpy(
+            rng.integers(0, conf.n_class, (K, conf.B)) if task.act_fn ==
+            "softmax" else (rng.random((K, conf.B, conf.n_class)) < 0.5
+                            ).astype(np.float32)).to(device)
+    mask = torch.ones((K, conf.B, conf.N), dtype=torch.bool, device=device)
+    weights = torch.ones((K, conf.B), dtype=torch.float32, device=device)
+    return patches, mask, labels, weights
+
+
+def check_finite(torch, conf, losses, task_losses, preds, lead):
+    """Every loss finite, every prediction finite with its shape."""
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"non-finite loss: {losses.tolist()}")
+    for task in conf.task_list:
+        if not bool(torch.isfinite(task_losses[task.name]).all()):
+            raise AssertionError(f"non-finite {task.name} loss")
+        p = preds[task.name]
+        if tuple(p.shape) != lead + (conf.B, conf.n_class) or not bool(
+                torch.isfinite(p).all()):
+            raise AssertionError(f"{task.name}: bad preds {tuple(p.shape)}")
+
+
+def train_step_parity(torch, device):
+    """The kernel held against its plain version inside training
+    (``ips_tpu_torch.scripts.train_parity``): for each input seed, one
+    small fp32 fused_step from the same seeded weights, scored by the
+    kernel on the card, against the same step scored by the plain version
+    on the card and on the CPU; equal kept indices, loss, ReLU inputs,
+    gradients and updated params within the script's bounds, a flipped
+    ReLU gate only where its inputs straddle 0 within rounding."""
+    from ips_tpu_torch.scripts import train_parity as tp
+    results = [tp.parity(device, seed) for seed in tp.SEEDS]
+    for res in results:
+        for side in ("vs_device_plain", "vs_cpu"):
+            r = res[side]
+            flips = {k: f"{f['n']} at {f['gap']:.1e} of RMS"
+                     for k, f in r["gate_flips"].items()}
+            log(f"  seed {res['seed']} kernel step {side} (fp32, "
+                f"{res['launches']} launches): same kept indices "
+                f"{r['same_idx']}, loss {r['loss_rel']:.1e} relative, ReLU "
+                f"inputs {r['pre_dist']:.1e} (bound {tp.PRE_DIST}); gates "
+                f"flipped {flips or 0}; over {r['n_held']} of "
+                f"{r['n_params']} tensors gradients {r['grad_dist']:.3e} "
+                f"(bound {tp.GRAD_DIST}), params {r['param_dist']:.3e} "
+                f"(bound {tp.PARAM_DIST})")
+    tp.check(results)
+
+
+def phase_train(torch, np, device, card):
+    """The training path at full width; returns score_logits' launches
+    in the timed and warm-up fused_multi_step calls."""
+    from ips_tpu_torch.config import config_from_dict
+    from ips_tpu_torch.ops import score_kernel as sk
+    from ips_tpu_torch.train.schedule import warmup_cosine_lr
+    from ips_tpu_torch.train.steps import IPSTrainer
+
+    conf = config_from_dict(MNIST_CONFIG)
+    K = conf.steps_per_dispatch
+    n_iter = math.ceil((conf.N - conf.M) / conf.I)
+    steps_per_epoch = math.ceil(MNIST_TRAIN_IMAGES / conf.B)
+    warmup = int(conf.n_epoch_warmup * steps_per_epoch)
+    lr = warmup_cosine_lr(warmup + 1, steps_per_epoch, conf.n_epoch,
+                          conf.n_epoch_warmup, conf.lr)
+    tr = IPSTrainer(conf)                  # the card, by default
+    if tr.device.type != "cuda":
+        raise AssertionError(f"IPSTrainer defaulted to {tr.device}")
+    batches = train_batches(torch, np, conf, K, device)
+    log(f"  config: B={conf.B} N={conf.N} M={conf.M} I={conf.I}, "
+        f"{conf.compute_dtype} compute, dropout {conf.dropout}/"
+        f"{conf.attn_dropout}, shuffle={conf.shuffle}, K={K} steps a "
+        f"call, lr {lr:.6g} (step {warmup + 1}, just past warmup)")
+
+    # (a) the config as shipped: one warm-up call, then timed calls
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.logits.launches = 0
+    times = []
+    for r in range(1 + N_TIMED_DISPATCHES):
+        gens = [tr.new_generator(1000 * r + k) for k in range(K)]
+        before = sk.logits.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses, task_losses, preds = tr.fused_multi_step(
+            *batches, gens, [lr] * K)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launched = sk.logits.launches - before
+        check_finite(torch, conf, losses, task_losses, preds, (K,))
+        if launched != n_iter * K:
+            raise AssertionError(f"call {r}: score kernel launched "
+                                 f"{launched} times, expected {n_iter * K}")
+        log(f"  fused_multi_step {'warm-up' if r == 0 else r}: "
+            f"{dt * 1e3:.2f} ms ({dt / K * 1e3:.2f} ms a step), "
+            f"{launched / K:g} kernel launches a step, losses "
+            f"{[round(v, 4) for v in losses.tolist()]}")
+        if r:
+            times.append(dt / K)
+    launches = sk.logits.launches
+    peak = torch.cuda.max_memory_allocated()
+    median = sorted(times)[len(times) // 2]
+    log(f"  train: median {median * 1e3:.2f} ms per optimizer step over "
+        f"{len(times)} calls of {K} steps, peak memory "
+        f"{peak / 2**20:.1f} MiB (max_memory_allocated), "
+        f"{launches / ((1 + N_TIMED_DISPATCHES) * K):g} score_logits "
+        f"launches per step, trainer step {tr.step}, card {card}")
+
+    # (b) overfit one fixed batch from fresh weights
+    tr = IPSTrainer(conf)
+    one = [b[0] for b in batches[:2]] + [
+        {k: v[0] for k, v in batches[2].items()}, batches[3][0]]
+    curve = []
+    for k in range(N_OVERFIT_STEPS):
+        loss = tr.fused_step(*one, tr.new_generator(k), lr)[0].item()
+        if not math.isfinite(loss):
+            raise AssertionError(f"overfit step {k}: loss {loss}")
+        curve.append(loss)
+    first, last = sum(curve[:5]) / 5, sum(curve[-5:]) / 5
+    log(f"  overfit: {N_OVERFIT_STEPS} steps on one batch, loss "
+        f"{[round(v, 4) for v in curve]}; mean of the first 5 "
+        f"{first:.4f}, of the last 5 {last:.4f}")
+    if not last < first:
+        raise AssertionError("the loss did not fall on a fixed batch")
+
+    # (c) the kernel held against its plain version inside training
+    train_step_parity(torch, device)
+
+    # (d) where one full-width step's device time goes, and how much of it
+    # is the no-grad selection
+    from ips_tpu_torch.utils.timing import device_kernels
+    breakdown(torch, lambda: tr.fused_step(*one, tr.new_generator(0), lr),
+              median, what="training step")
+    sel = device_kernels(lambda: tr.select(one[0], one[1],
+                                           tr.new_generator(0)))
+    log(f"  selection alone: device busy "
+        f"{sum(us for us, _ in sel.values()) / 1e3:.2f} ms, "
+        f"{sum(n for _, n in sel.values())} device ops")
+    return launches
 
 
 def phase_cli(torch, np, pred, patches):
@@ -531,6 +694,7 @@ def phase_conv_probe(torch, np, device, card, pred):
             f"{row['event_ms']:.4f} ms, {row['tf_s']} TF/s useful, max|err| "
             f"{row['max_abs_err']:.3e} (replaces {row['replaces']})")
     entry["launches"] = launches
+    entry["launches_by_path"] = {"conv_probe": launches}
     return entry
 
 
@@ -557,9 +721,13 @@ def main() -> int:
         entry = phase_kernels(torch, np, device)
     with Phase("predict"):
         pred, patches, launches = phase_predict(torch, np, device, card)
+    with Phase("train"):
+        train_launches = phase_train(torch, np, device, card)
     with Phase("cli"):
         phase_cli(torch, np, pred, patches)
-    entry["launches"] = launches
+    entry["launches"] = launches + train_launches
+    entry["launches_by_path"] = {"predict": launches,
+                                 "train": train_launches}
     with Phase("conv_probe"):
         conv_entry = phase_conv_probe(torch, np, device, card, pred)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -37,7 +37,7 @@ class Predictor:
         self.conf = conf.replace(shuffle=False)
         if trainer is not None:
             device = trainer.device if device is None else device
-        self.trainer = IPSTrainer(self.conf, device=device)
+        self.trainer = IPSTrainer(self.conf, device=device, init_opt=False)
         if trainer is not None:
             self.trainer.model.load_state_dict(trainer.model.state_dict())
         if checkpoint:

@@ -8,12 +8,16 @@ channels_last memory, so a (n, H, W, C) patch batch enters as a view.
 
 As in the reference, parameters stay fp32 and every conv casts its input
 and weight to the compute dtype; BatchNorm outputs fp32, so activations
-between convs, the residual sums and the pooled output are fp32.
+between convs, the residual sums and the pooled output are fp32. ``train``
+and ``row_weights`` reach every norm: batch statistics weighted by row in
+training, running statistics otherwise.
 
 ``FeatureProjector`` (feature mode) is not ported yet.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -70,12 +74,15 @@ class BasicBlock(nn.Module):
             self.downsample_conv = Conv(c_in, filters, 1, stride, 0, dtype)
             self.downsample_bn = MaskedBatchNorm(filters)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                row_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        def norm(bn, h):
+            return bn(h, use_running_average=not train, weights=row_weights)
+        y = F.relu(norm(self.bn1, self.conv1(x)))
+        y = norm(self.bn2, self.conv2(y))
         residual = x
         if hasattr(self, "downsample_conv"):
-            residual = self.downsample_bn(self.downsample_conv(x))
+            residual = norm(self.downsample_bn, self.downsample_conv(x))
         return F.relu(y + residual)
 
 
@@ -96,13 +103,16 @@ class BottleneckBlock(nn.Module):
             self.downsample_conv = Conv(c_in, out_ch, 1, stride, 0, dtype)
             self.downsample_bn = MaskedBatchNorm(out_ch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                row_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        def norm(bn, h):
+            return bn(h, use_running_average=not train, weights=row_weights)
+        y = F.relu(norm(self.bn1, self.conv1(x)))
+        y = F.relu(norm(self.bn2, self.conv2(y)))
+        y = norm(self.bn3, self.conv3(y))
         residual = x
         if hasattr(self, "downsample_conv"):
-            residual = self.downsample_bn(self.downsample_conv(x))
+            residual = norm(self.downsample_bn, self.downsample_conv(x))
         return F.relu(y + residual)
 
 
@@ -138,10 +148,14 @@ class ConvPatchEncoder(nn.Module):
                 self.add_module(name, blk)
                 self.block_names.append(name)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                row_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: (n, H, W, C) -> (n, D_out); row_weights (n,) keeps padded
+        rows out of the batch statistics of training."""
         y = x.permute(0, 3, 1, 2)          # NHWC -> NCHW, channels_last view
-        y = F.relu(self.bn1(self.conv1(y)))
+        y = F.relu(self.bn1(self.conv1(y), use_running_average=not train,
+                            weights=row_weights))
         y = F.max_pool2d(y, 3, stride=2, padding=1)
         for name in self.block_names:
-            y = getattr(self, name)(y)
+            y = getattr(self, name)(y, train, row_weights)
         return y.mean(dim=(2, 3), dtype=torch.float32)

@@ -8,7 +8,9 @@
                     the reference-shaped attention path
   * ``aggregate`` — cross-attention pooling -> (B, n_token, D)
   * ``predict``   — per-task heads: Linear -> softmax/sigmoid
-  * ``forward``   — eval forward over the M selected patches
+  * ``forward``   — the forward over the M selected patches; with
+                    ``train=True`` batch statistics (weighted by instance)
+                    and dropout, as the gradient step runs it
 
 Submodule names follow the reference's parameter tree (``encoder``,
 ``transf``, ``head_<task>``) so the weight bridge maps names one to one.
@@ -58,18 +60,23 @@ class IPSModel(nn.Module):
             self.register_buffer("in_std", torch.from_numpy(IMAGENET_STD),
                                  persistent=False)
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """Encode patches: (B, n, ph, pw, C) -> (B, n, D) fp32 (eval).
+    def encode(self, x: torch.Tensor, train: bool = False,
+               weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Encode patches: (B, n, ph, pw, C) -> (B, n, D) fp32.
 
         uint8 patches are scaled to [0, 1] per chunk, so the resident
-        patch tensor can stay uint8.
+        patch tensor can stay uint8. ``weights`` (B,) keeps zero-weight
+        instances out of the batch statistics of training.
         """
         if x.dtype == torch.uint8:
             x = x.float() / 255.0
         if self.conf.input_norm == "imagenet":
             x = (x.float() - self.in_mean) / self.in_std
         lead = x.shape[:2]
-        emb = self.encoder(x.reshape((lead[0] * lead[1],) + x.shape[2:]))
+        row_w = (weights.repeat_interleave(lead[1]) if weights is not None
+                 else None)
+        emb = self.encoder(x.reshape((lead[0] * lead[1],) + x.shape[2:]),
+                           train, row_w)
         return emb.reshape(lead + (self.conf.D,))
 
     def score_weights(self) -> torch.Tensor:
@@ -87,8 +94,10 @@ class IPSModel(nn.Module):
         return score_kernel.scores(emb.float(), self.score_weights(), mask)
 
     def aggregate(self, emb: torch.Tensor,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.transf(emb, mask)
+                  mask: Optional[torch.Tensor] = None, train: bool = False,
+                  generator: Optional[torch.Generator] = None
+                  ) -> torch.Tensor:
+        return self.transf(emb, mask, train, generator)
 
     def predict(self, image_emb: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Per-task prediction from the (B, n_token, D) aggregate."""
@@ -102,12 +111,14 @@ class IPSModel(nn.Module):
 
     def forward(self, mem_patch: torch.Tensor,
                 mem_pos: Optional[torch.Tensor] = None,
-                mem_mask: Optional[torch.Tensor] = None
+                mem_mask: Optional[torch.Tensor] = None, train: bool = False,
+                weights: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
-        emb = self.encode(mem_patch)
+        emb = self.encode(mem_patch, train, weights)
         if mem_pos is not None:
             emb = emb + mem_pos
-        return self.predict(self.aggregate(emb, mem_mask))
+        return self.predict(self.aggregate(emb, mem_mask, train, generator))
 
 
 @torch.no_grad()

@@ -1,9 +1,10 @@
 """Weight-aware BatchNorm (counterpart of ips_tpu/models/norm.py).
 
 Parameters and statistics are kept in fp32 and the output is fp32,
-whatever the input's dtype, as in the reference. Only the eval path
-(running statistics) is ported: the row-weighted batch statistics of
-training come with the training slice.
+whatever the input's dtype, as in the reference. In training the batch
+statistics are row-weighted, so zero-weight (padded) instances of a
+partial batch stay out of them; with all-ones weights, or none, they are
+plain BatchNorm's.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from torch import nn
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over dim 1 of (N, C, ...) with torch's eps (1e-5)."""
+    """BatchNorm over dim 1 of (N, C, ...) with torch's eps (1e-5) and the
+    flax momentum convention: ``ra = m * ra + (1 - m) * stat``, m = 0.9."""
 
     def __init__(self, features: int, momentum: float = 0.9,
                  epsilon: float = 1e-5):
@@ -29,11 +31,42 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, use_running_average: bool = True,
                 weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if not use_running_average:
-            raise NotImplementedError(
-                "train-mode (row-weighted) batch statistics are not ported "
-                "yet: ROADMAP.md queue 1, item 1 (training)")
+        """x: (N, C, ...); weights: optional (N,) row weights, used only
+        for the batch statistics of training."""
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        y = ((x.float() - self.running_mean.view(shape))
-             * torch.rsqrt(self.running_var + self.epsilon).view(shape))
+        if use_running_average:
+            # no name is bound to the fp32 copy or the centered tensor, so
+            # each is freed as soon as the next op has read it (the eval
+            # encode's peak memory)
+            y = ((x.float() - self.running_mean.view(shape))
+                 * torch.rsqrt(self.running_var + self.epsilon).view(shape))
+        else:
+            xc, var = self._centered(x.float(), weights)
+            y = xc * torch.rsqrt(var + self.epsilon).view(shape)
         return y * self.weight.view(shape) + self.bias.view(shape)
+
+    def _centered(self, x32: torch.Tensor, weights: Optional[torch.Tensor]):
+        """x32 minus its row-weighted batch mean, and the biased variance
+        (two-pass), over max(sum(w) * H * W, 1) values; updates the
+        running statistics."""
+        shape = (1, -1) + (1,) * (x32.dim() - 2)
+        dims = [0] + list(range(2, x32.dim()))
+        if weights is None:
+            w = torch.ones((), device=x32.device)
+            count = torch.tensor(float(x32.numel() // x32.shape[1]),
+                                 device=x32.device)
+        else:
+            w = weights.float().view((-1,) + (1,) * (x32.dim() - 1))
+            per_row = x32.numel() // (x32.shape[0] * x32.shape[1])
+            count = torch.clamp(w.sum() * per_row, min=1.0)
+        mean = (x32 * w).sum(dims) / count
+        xc = x32 - mean.view(shape)
+        var = (xc ** 2 * w).sum(dims) / count
+        with torch.no_grad():
+            # normalization uses the biased variance; the running one
+            # stores the Bessel-corrected value, as torch does
+            m = self.momentum
+            bessel = count / torch.clamp(count - 1.0, min=1.0)
+            self.running_mean.mul_(m).add_((1 - m) * mean)
+            self.running_var.mul_(m).add_((1 - m) * var * bessel)
+        return xc, var

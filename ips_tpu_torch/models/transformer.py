@@ -10,8 +10,10 @@ ips_tpu/models/transformer.py): aggregator and patch scorer.
   * patch saliency = attention averaged over heads, then over tokens
 
 Parameters stay fp32; each projection computes in the compute dtype and
-the attention products accumulate in fp32, as in the reference. Only the
-eval forward is ported (dropout comes with the training slice).
+the attention products accumulate in fp32, as in the reference. In
+training (``train=True``) dropout acts where the reference's does: on the
+attention weights after the softmax, on the output projection and on the
+MLP's second layer, each mask drawn from the caller's ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -38,6 +40,20 @@ def pos_enc_1d_np(D: int, len_seq: int) -> np.ndarray:
     ang = position * div_term
     pe = np.stack([np.sin(ang), np.cos(ang)], axis=-1)
     return pe.reshape(len_seq, D).astype(np.float32)
+
+
+def dropout(x: torch.Tensor, p: float, train: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability 1 - p and
+    scale the kept ones by 1 / (1 - p); the identity unless training with
+    p > 0. The mask is drawn from ``generator``, which must live on x's
+    device."""
+    if not train or p == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), 0.0)
 
 
 def dense(layer: nn.Linear, x: torch.Tensor,
@@ -88,17 +104,20 @@ class MultiHeadCrossAttention(nn.Module):
         """Per-patch saliency (B, L): mean over heads, then tokens."""
         return self.attn_weights(x, mask).mean(dim=1).mean(dim=1)
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, L = x.shape[:2]
-        attn = self.attn_weights(x, mask)
+        attn = dropout(self.attn_weights(x, mask), self.attn_dropout, train,
+                       generator)
         v = dense(self.v_w, x, self.dtype).reshape(
             B, L, self.H, self.D_v).transpose(1, 2)
         out = torch.einsum("bhtl,bhld->bhtd", attn.to(v.dtype).float(),
                            v.float())
         out = out.transpose(1, 2).reshape(B, self.n_token,
                                           self.H * self.D_v)
-        out = dense(self.fc, out, self.dtype)
+        out = dropout(dense(self.fc, out, self.dtype), self.dropout, train,
+                      generator)
         # residual on the raw learnable query (reference transformer.py:106)
         return self.layer_norm(out.float() + self.q)
 
@@ -115,9 +134,11 @@ class MLP(nn.Module):
         self.w_2 = nn.Linear(D_inner, D)
         self.layer_norm = nn.LayerNorm(D, eps=1e-6)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = F.relu(dense(self.w_1, x, self.dtype))
-        h = dense(self.w_2, h, self.dtype)
+        h = dropout(dense(self.w_2, h, self.dtype), self.dropout, train,
+                    generator)
         return self.layer_norm(h.float() + x)
 
 
@@ -137,7 +158,9 @@ class CrossAttnTransformer(nn.Module):
         """(B, L, D) -> (B, L) saliency scores."""
         return self.crs_attn.get_scores(x, mask)
 
-    def forward(self, x: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(B, L, D) -> (B, n_token, D) aggregated image embedding."""
-        return self.mlp(self.crs_attn(x, mask))
+        return self.mlp(self.crs_attn(x, mask, train, generator), train,
+                        generator)

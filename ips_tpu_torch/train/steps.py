@@ -1,18 +1,34 @@
-"""Selection step of the trainer, inference part (counterpart of
+"""Selection, training and evaluation steps (counterpart of
 ips_tpu/train/steps.py).
 
-:class:`IPSTrainer` owns the model and runs eval-mode selection. The
-optimizer, the train step and the fused select+train step come with the
-training slice (ROADMAP.md queue 1, item 1); until then the trainer is
-built without optimizer state, as ``IPSTrainer(init_opt=False)`` is in
-the reference.
+:class:`IPSTrainer` owns the model, its AdamW optimizer and a step
+counter, and runs each phase over that one set of parameters:
+
+  * ``select``        — eval-mode IPS over a (B, N, ...) batch, no gradient
+  * ``train_step``    — the gradient forward over the (B, M) memory batch
+                        (batch statistics, dropout), then AdamW at the
+                        given learning rate
+  * ``eval_step``     — the same forward in eval mode, no gradient
+  * ``fused_step``    — selection, then the train step on what it kept;
+                        ``fused_multi_step`` runs K of them in order
+  * ``fused_eval_step`` / ``fused_eval_multi_step`` — selection + eval
+
+As in the reference, ``train`` is passed to every module call: selection
+sees running statistics and no dropout while the train forward of the
+same step uses batch statistics and dropout, and the modules' own
+``train()`` / ``eval()`` flags are never read. Shuffle and dropout draw
+from the caller's ``torch.Generator`` (one per step, on the trainer's
+device); they cannot reproduce ``jax.random``'s streams.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import contextlib
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ips_tpu_torch.config import Config
 from ips_tpu_torch.models.ips_net import DTYPES, IPSModel, init_weights
@@ -20,16 +36,84 @@ from ips_tpu_torch.models.transformer import pos_enc_1d_np
 from ips_tpu_torch.ops.selection import ips_select
 from ips_tpu_torch.utils.device import resolve_device
 
+Tensors = Dict[str, torch.Tensor]
+
+
+def compute_task_losses(conf: Config, preds: Tensors, labels: Tensors,
+                        weights: torch.Tensor
+                        ) -> Tuple[torch.Tensor, Tensors]:
+    """Per-task losses averaged into one scalar.
+
+    softmax tasks: NLL of log(pred + eps); sigmoid tasks: BCE over the
+    flattened outputs, clamped to [1e-7, 1 - 1e-7]. ``weights`` (B,)
+    masks padded instances: weighted means over max(sum(w), 1).
+    """
+    w_sum = torch.clamp(weights.sum(), min=1.0)
+    task_losses = {}
+    total = 0.0
+    for task in conf.task_list:
+        pred, label = preds[task.name], labels[task.name]
+        if task.act_fn == "softmax":
+            logp = torch.log(pred + conf.eps)                     # (B, C)
+            nll = -torch.gather(logp, 1, label.long()[:, None])[:, 0]
+            tl = (nll * weights).sum() / w_sum
+        else:
+            p = pred.reshape(pred.shape[0], -1)
+            y = label.reshape(label.shape[0], -1).float()
+            p = torch.clamp(p, 1e-7, 1.0 - 1e-7)
+            bce = -(y * torch.log(p) + (1.0 - y) * torch.log1p(-p))
+            tl = (bce.mean(dim=-1) * weights).sum() / w_sum
+        task_losses[task.name] = tl
+        total = total + tl
+    return total / len(conf.task_list), task_losses
+
+
+@contextlib.contextmanager
+def _running_stats_kept(module: nn.Module):
+    """Leave ``module``'s buffers (its BatchNorm running statistics) as
+    they were found. The backward's recompute of a checkpointed train-mode
+    encode runs the forward again; the reference's ``jax.checkpoint`` is
+    pure, and its new statistics come out of the forward once."""
+    bufs = list(module.buffers())
+    saved = [b.clone() for b in bufs]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, s in zip(bufs, saved):
+                b.copy_(s)
+
+
+def _detached(out):
+    loss, task_losses, preds = out
+    return (loss.detach(), {k: v.detach() for k, v in task_losses.items()},
+            {k: v.detach() for k, v in preds.items()})
+
+
+def _stacked(outs):
+    """K per-step (loss, task_losses, preds) -> the same with a (K,) axis."""
+    losses = torch.stack([o[0] for o in outs])
+    task_losses = {k: torch.stack([o[1][k] for o in outs]) for k in outs[0][1]}
+    preds = {k: torch.stack([o[2][k] for o in outs]) for k in outs[0][2]}
+    return losses, task_losses, preds
+
+
+def _step_slice(k: int, patches, mask, labels, weights):
+    return (patches[k], None if mask is None else mask[k],
+            {n: v[k] for n, v in labels.items()}, weights[k])
+
 
 class IPSTrainer:
-    """Owns the model and the eval-mode selection."""
+    """Owns the model, the optimizer and the step functions."""
 
     def __init__(self, conf: Config,
                  device: Optional[Union[str, torch.device]] = None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 init_opt: bool = True):
         """Weights are drawn from ``generator`` (default: a CPU generator
         seeded with ``conf.seed``); load trained ones with
-        :mod:`ips_tpu_torch.weights` or ``model.load_state_dict``."""
+        :mod:`ips_tpu_torch.weights` or ``model.load_state_dict``.
+        ``init_opt=False`` skips the AdamW state, for inference."""
         self.conf = conf
         self.device = resolve_device(device)
         if conf.pretrained:
@@ -43,12 +127,25 @@ class IPSTrainer:
         with torch.random.fork_rng(devices=[]):
             self.model = IPSModel(conf)
         init_weights(self.model, generator)
-        self.model.to(self.device).eval()
+        self.model.to(self.device)
+        # AdamW with the reference's settings: betas (0.9, 0.999), eps 1e-8,
+        # weight decay on every parameter; the lr is set before each step
+        self.opt = (torch.optim.AdamW(self.model.parameters(), lr=0.0,
+                                      betas=(0.9, 0.999), eps=1e-8,
+                                      weight_decay=conf.wd)
+                    if init_opt else None)
+        self.step = 0
         self.pos_table = (torch.from_numpy(pos_enc_1d_np(conf.D, conf.N))
                           .to(self.device) if conf.use_pos else None)
 
+    def new_generator(self, seed: int) -> torch.Generator:
+        """A generator on the trainer's device, for one step's shuffle and
+        dropout."""
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    # -- selection ----------------------------------------------------------
     def _enc_score_fns(self):
-        """(encode, score) closures for the selection pass."""
+        """(encode, score) closures for the selection pass (eval mode)."""
         return self.model.encode, self.model.scores
 
     def _select_impl(self, patches: torch.Tensor, mask: torch.Tensor,
@@ -72,8 +169,169 @@ class IPSTrainer:
         out = (res.mem_patch, res.mem_pos, res.mem_idx, res.mem_mask)
         return out + (res.mem_emb,) if return_emb else out
 
+    @torch.no_grad()
+    def select(self, patches: torch.Tensor,
+               mask: Optional[torch.Tensor] = None,
+               generator: Optional[torch.Generator] = None):
+        """Run IPS for one batch: (mem_patch, mem_pos, mem_idx, mem_mask)."""
+        return self._select_impl(patches, mask, generator)
+
+    # -- gradient step ------------------------------------------------------
+    def _loss_and_aux(self, mem_patch, mem_pos, mem_mask, labels, weights,
+                      generator):
+        conf = self.conf
+        attn_mask = mem_mask if conf.mask_padding else None
+        if conf.grad_encode_chunk or conf.remat_encode:
+            preds = self._grad_forward(mem_patch, mem_pos, attn_mask,
+                                       weights, generator)
+        else:
+            preds = self.model(mem_patch, mem_pos, attn_mask, train=True,
+                               weights=weights, generator=generator)
+        loss, task_losses = compute_task_losses(conf, preds, labels, weights)
+        return loss, task_losses, preds
+
+    def _grad_forward(self, mem_patch, mem_pos, attn_mask, weights,
+                      generator):
+        """Gradient-mode forward with bounded encoder activation memory.
+
+        The train-mode encode runs under ``torch.utils.checkpoint``: the
+        backward recomputes it instead of keeping its activations across
+        the transformer (exact). ``grad_encode_chunk=c`` encodes (B, c)
+        slices of the M patches in order, a ``M % c`` tail as one smaller
+        chunk, each with its own batch statistics (ghost BatchNorm), the
+        running statistics updated chunk by chunk.
+        """
+        model, conf = self.model, self.conf
+
+        def enc(x):
+            return model.encode(x, train=True, weights=weights)
+
+        def remat_enc(x):
+            return checkpoint(enc, x, use_reentrant=False, context_fn=lambda: (
+                contextlib.nullcontext(), _running_stats_kept(model.encoder)))
+
+        M = mem_patch.shape[1]
+        c = conf.grad_encode_chunk
+        if c and c < M:
+            tail = M % c
+            embs = [remat_enc(mem_patch[:, s:s + c])
+                    for s in range(0, M - tail, c)]
+            if tail:
+                embs.append(remat_enc(mem_patch[:, M - tail:]))
+            emb = torch.cat(embs, dim=1)
+        else:
+            emb = remat_enc(mem_patch)
+        if mem_pos is not None:
+            emb = emb + mem_pos
+        return model.predict(model.aggregate(emb, attn_mask, True, generator))
+
+    def _train_impl(self, mem_patch, mem_pos, mem_mask, labels, weights,
+                    generator, lr: float):
+        self.opt.zero_grad(set_to_none=True)
+        out = self._loss_and_aux(mem_patch, mem_pos, mem_mask, labels,
+                                 weights, generator)
+        out[0].backward()
+        for group in self.opt.param_groups:
+            group["lr"] = lr
+        self.opt.step()
+        self.step += 1
+        return _detached(out)
+
+    def _require_opt(self):
+        if self.opt is None:
+            raise RuntimeError(
+                "trainer was built with init_opt=False (inference-only); "
+                "training steps need optimizer state")
+
+    def train_step(self, mem_patch, mem_pos, mem_mask, labels, weights,
+                   generator: Optional[torch.Generator], lr: float):
+        """One AdamW step on a selected (B, M) memory batch; returns
+        (loss, task_losses, preds). The gradients stay in ``.grad``."""
+        self._require_opt()
+        return self._train_impl(mem_patch, mem_pos, mem_mask, labels,
+                                weights, generator, lr)
+
+    # -- eval ---------------------------------------------------------------
+    @torch.no_grad()
+    def eval_step(self, mem_patch, mem_pos, mem_mask, labels, weights):
+        attn_mask = mem_mask if self.conf.mask_padding else None
+        preds = self.model(mem_patch, mem_pos, attn_mask, train=False)
+        loss, task_losses = compute_task_losses(self.conf, preds, labels,
+                                                weights)
+        return loss, task_losses, preds
+
     def _reuse_eval_emb(self) -> bool:
-        """Inference may consume the selection buffer's embeddings:
-        selection runs the encoder in the same eval mode the forward
-        would, so re-encoding the M survivors recomputes the same values."""
+        """Eval and inference may consume the selection buffer's
+        embeddings: selection runs the encoder in the same eval mode the
+        forward would, so re-encoding the M survivors recomputes the same
+        values."""
         return self.conf.eval_reuse_emb and self.conf.select_dtype != "int8"
+
+    @torch.no_grad()
+    def eval_from_emb_step(self, mem_emb, mem_pos, mem_mask, labels,
+                           weights):
+        """Eval forward from the buffer's eval-mode embeddings: no patch
+        gather, no encoder pass."""
+        attn_mask = mem_mask if self.conf.mask_padding else None
+        emb = mem_emb if mem_pos is None else mem_emb + mem_pos
+        preds = self.model.predict(self.model.aggregate(emb, attn_mask))
+        loss, task_losses = compute_task_losses(self.conf, preds, labels,
+                                                weights)
+        return loss, task_losses, preds
+
+    @torch.no_grad()
+    def fused_eval_step(self, patches, mask, labels, weights,
+                        generator: Optional[torch.Generator] = None):
+        """Selection + eval forward; returns (loss, task_losses, preds)."""
+        if self._reuse_eval_emb():
+            _, mem_pos, _, mem_mask, mem_emb = self._select_impl(
+                patches, mask, generator, return_emb=True)
+            return self.eval_from_emb_step(mem_emb, mem_pos, mem_mask,
+                                           labels, weights)
+        mem_patch, mem_pos, _, mem_mask = self._select_impl(patches, mask,
+                                                            generator)
+        return self.eval_step(mem_patch, mem_pos, mem_mask, labels, weights)
+
+    def fused_eval_multi_step(
+            self, patches, mask, labels, weights,
+            generators: Optional[Sequence[torch.Generator]] = None):
+        """K eval batches stacked on a leading (K,) axis; per-step outputs
+        stacked the same way."""
+        K = patches.shape[0]
+        gens = generators if generators is not None else [None] * K
+        return _stacked([
+            self.fused_eval_step(*_step_slice(k, patches, mask, labels,
+                                              weights), gens[k])
+            for k in range(K)])
+
+    # -- fused select + train -----------------------------------------------
+    def _fused_impl(self, patches, mask, labels, weights, generator, lr):
+        # selection sees the running statistics before this step's update
+        with torch.no_grad():
+            mem_patch, mem_pos, _, mem_mask = self._select_impl(
+                patches, mask, generator)
+        return self._train_impl(mem_patch, mem_pos, mem_mask, labels,
+                                weights, generator, lr)
+
+    def fused_step(self, patches, mask, labels, weights,
+                   generator: Optional[torch.Generator], lr: float):
+        """Selection, then one AdamW step on what it kept."""
+        self._require_opt()
+        return self._fused_impl(patches, mask, labels, weights, generator,
+                                lr)
+
+    def fused_multi_step(self, patches, mask, labels, weights,
+                         generators: Sequence[Optional[torch.Generator]],
+                         lrs: Sequence[float]):
+        """K fused steps in order (``conf.steps_per_dispatch``).
+
+        patches / mask / labels / weights carry a leading (K,) step axis;
+        ``generators`` and ``lrs`` hold one entry per step. The updates
+        are those of K sequential ``fused_step`` calls; returns per-step
+        (losses, task_losses, preds) stacked on a (K,) axis.
+        """
+        self._require_opt()
+        return _stacked([
+            self._fused_impl(*_step_slice(k, patches, mask, labels, weights),
+                             generators[k], float(lrs[k]))
+            for k in range(patches.shape[0])])

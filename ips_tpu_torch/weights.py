@@ -15,6 +15,12 @@ these leaf and layout rules:
   the query tokens ``q`` (1, T, D) <-> ``q``
 
 A key with no counterpart, or a counterpart with no key, raises.
+
+The training state travels too (:func:`load_jax_train_state`): optax's
+AdamW moments ``mu`` / ``nu`` are trees shaped like ``params`` and map to
+``torch.optim.AdamW``'s ``exp_avg`` / ``exp_avg_sq`` by the same rules,
+the Adam ``count`` to each parameter's ``step``, and ``TrainState.step``
+to the trainer's step counter.
 """
 
 from __future__ import annotations
@@ -95,33 +101,76 @@ def load_flat(model: nn.Module,
     if isinstance(flat, str):
         with np.load(flat) as z:
             flat = {k: z[k] for k in z.files}
-    state = {}
-    for key, ref_key, layout, target in _tensors(model):
-        if ref_key not in flat:
-            raise KeyError(f"weight bridge: {ref_key!r} (for {key!r}) is "
-                           "missing from the given variables")
-        t = torch.from_numpy(np.array(flat[ref_key], np.float32))
-        if layout == "conv":
-            t = t.permute(3, 2, 0, 1)          # HWIO -> OIHW
-        elif layout == "dense":
-            t = t.t()
-        if t.shape != target.shape:
-            raise ValueError(f"weight bridge: {ref_key!r} has shape "
-                             f"{tuple(t.shape)}, {key!r} needs "
-                             f"{tuple(target.shape)}")
-        state[key] = t.contiguous()
-    ref_keys = {ref_key for _, ref_key, _, _ in _tensors(model)}
-    unused = sorted(set(flat) - ref_keys)
+    state = {key: _from_reference(flat, key, ref_key, layout, target)
+             for key, ref_key, layout, target in _tensors(model)}
+    _check_all_used(flat, {ref_key for _, ref_key, _, _ in _tensors(model)})
+    model.load_state_dict(state, strict=True)
+
+
+def _from_reference(flat: Mapping[str, np.ndarray], key: str, ref_key: str,
+                    layout: str, target: torch.Tensor) -> torch.Tensor:
+    """flat[ref_key] in the port's layout, checked against ``target``."""
+    if ref_key not in flat:
+        raise KeyError(f"weight bridge: {ref_key!r} (for {key!r}) is "
+                       "missing from the given variables")
+    t = torch.from_numpy(np.array(flat[ref_key], np.float32))
+    if layout == "conv":
+        t = t.permute(3, 2, 0, 1)          # HWIO -> OIHW
+    elif layout == "dense":
+        t = t.t()
+    if t.shape != target.shape:
+        raise ValueError(f"weight bridge: {ref_key!r} has shape "
+                         f"{tuple(t.shape)}, {key!r} needs "
+                         f"{tuple(target.shape)}")
+    return t.contiguous()
+
+
+def _check_all_used(flat: Mapping[str, np.ndarray], used) -> None:
+    unused = sorted(set(flat) - set(used))
     if unused:
         raise KeyError(f"weight bridge: keys with no counterpart in the "
                        f"port: {unused}")
-    model.load_state_dict(state, strict=True)
 
 
 def load_jax(model: nn.Module, params: Mapping[str, Any],
              batch_stats: Mapping[str, Any]) -> None:
     """Load the reference's nested ``params`` / ``batch_stats`` trees."""
     load_flat(model, flatten_variables(params, batch_stats))
+
+
+def load_adam(optimizer: torch.optim.Optimizer, model: nn.Module,
+              mu: Mapping[str, Any], nu: Mapping[str, Any],
+              count: int) -> None:
+    """Load optax's Adam state (``ScaleByAdamState``: ``mu`` and ``nu``
+    trees shaped like ``params``, and ``count``) into ``optimizer``, a
+    ``torch.optim.AdamW`` over ``model.parameters()``."""
+    flat_mu, flat_nu = flatten_variables(mu), flatten_variables(nu)
+    used = []
+    for key, ref_key, layout, target in _tensors(model):
+        if not isinstance(target, nn.Parameter):
+            continue
+        used.append(ref_key)
+        dev = target.device
+        optimizer.state[target] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": _from_reference(flat_mu, key, ref_key, layout,
+                                       target).to(dev),
+            "exp_avg_sq": _from_reference(flat_nu, key, ref_key, layout,
+                                          target).to(dev)}
+    _check_all_used(flat_mu, used)
+    _check_all_used(flat_nu, used)
+
+
+def load_jax_train_state(trainer, state) -> None:
+    """Carry the reference's ``TrainState`` (params, batch_stats,
+    opt_state, step) into an ``IPSTrainer`` of the port, so that a run
+    continues from it. ``state.opt_state`` is optax's
+    ``inject_hyperparams(adamw)`` state, whose ``inner_state[0]`` is the
+    ``ScaleByAdamState``; it is read by attribute, without optax."""
+    load_jax(trainer.model, state.params, state.batch_stats)
+    adam = state.opt_state.inner_state[0]
+    load_adam(trainer.opt, trainer.model, adam.mu, adam.nu, int(adam.count))
+    trainer.step = int(state.step)
 
 
 def save_npz(model: nn.Module, path: str) -> None:

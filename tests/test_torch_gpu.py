@@ -204,3 +204,51 @@ def test_fused_block_rejects(cuda):
         cb.fused_block(*_block_inputs(cuda, 2, 5, 48))
     with pytest.raises(ValueError, match="one device"):
         cb.fused_block(x, {**q, "s1": q["s1"].cpu()})
+
+
+# ------------------------------------------------------ training on the card
+@pytest.fixture()
+def no_tf32(cuda):
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cudnn.allow_tf32 = prev
+
+
+def test_fused_step_kernel_matches_plain(no_tf32):
+    """A small fp32 step scored by the kernel against the same step scored
+    by the plain version on the card and on the CPU, for each input seed
+    of ips_tpu_torch.scripts.train_parity, at its bounds."""
+    from ips_tpu_torch.scripts import train_parity as tp
+    results = [tp.parity(no_tf32, seed) for seed in tp.SEEDS]
+    # ceil((40 - 8) / 8) chunks a selection
+    assert [r["launches"] for r in results] == [4] * len(tp.SEEDS)
+    tp.check(results)
+
+
+def test_fused_multi_step_launches_kernel_per_chunk(cuda):
+    from ips_tpu_torch.config import config_from_dict
+    from ips_tpu_torch.train.steps import IPSTrainer
+    from ips_tpu_torch.scripts.train_parity import SMALL_TRAIN
+    conf = config_from_dict(dict(SMALL_TRAIN, N=36, M=4, I=4, shuffle=True,
+                                 attn_dropout=0.1, dropout=0.1,
+                                 compute_dtype="bfloat16",
+                                 input_dtype="bfloat16"))
+    tr = IPSTrainer(conf)
+    assert tr.device.type == "cuda"
+    K = 3
+    rng = np.random.default_rng(6)
+    args = (torch.from_numpy(rng.random((K, 4, 36, 16, 16, 1), np.float32)
+                             ).to(cuda), None,
+            {"majority": torch.from_numpy(rng.integers(0, 10, (K, 4))
+                                          ).to(cuda),
+             "multi": torch.from_numpy((rng.random((K, 4, 10)) < 0.5
+                                        ).astype(np.float32)).to(cuda)},
+            torch.ones((K, 4), device=cuda))
+    before = sk.logits.launches
+    losses, _, preds = tr.fused_multi_step(
+        *args, [tr.new_generator(k) for k in range(K)], [1e-3] * K)
+    assert sk.logits.launches - before == 8 * K   # ceil((36 - 4) / 4) a step
+    assert losses.shape == (K,) and bool(torch.isfinite(losses).all())
+    assert preds["multi"].shape == (K, conf.B, 10)
+    assert tr.step == K

@@ -71,8 +71,9 @@ def test_masked_batchnorm_eval():
     weights.load_jax(bn, params, stats)
     got = bn(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), **TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bn(torch.from_numpy(x), use_running_average=False)
+    # eval reads the running statistics and leaves them as they were
+    np.testing.assert_array_equal(bn.running_mean.numpy(), stats["mean"])
+    np.testing.assert_array_equal(bn.running_var.numpy(), stats["var"])
 
 
 @pytest.mark.parametrize("enc_type,n_blocks,hw", [
