@@ -28,7 +28,17 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                breakdown of one full-width step;
   6. cli     — ``ips_tpu_torch.infer.main`` on two .npy inputs and a
                ``torch.save`` checkpoint in a temporary directory;
-  7. conv_probe — the fused BasicBlock kernel against its plain version
+  7. driver  — the training driver, ``ips_tpu_torch.main.main``, at the
+               shipped config (sparse input densified on the card, K = 8)
+               on a megapixel-MNIST set the port's generator writes at
+               1500x1500 (128 train, 32 test images, synthetic digits):
+               2 epochs with checkpoints and metrics lines, 8
+               ``score_logits`` launches per step and per eval batch,
+               densify on the card against the CPU, a checkpoint restored
+               bitwise, a resumed run that trains only the next epoch, ms
+               per step, peak memory and a profiler breakdown of one
+               epoch with the device's idle share;
+  8. conv_probe — the fused BasicBlock kernel against its plain version
                at the layer1 shapes (1600, 13, 13, 64), paired
                (800, 13, 13, 128), a ragged one and layer2_block1's
                (1600, 7, 7, 128), with device times of kernel, plain
@@ -87,6 +97,8 @@ N_TIMED_DISPATCHES = 3      # timed fused_multi_step calls after a warm-up
 N_OVERFIT_STEPS = 20
 # megapixel MNIST's training set (ips_tpu/data/mnist.py: n_train=5000)
 MNIST_TRAIN_IMAGES = 5000
+# phase driver: one K = 8 group of B = 16 a train epoch, 2 eval batches
+DRIVER_TRAIN_IMAGES, DRIVER_TEST_IMAGES, DRIVER_EPOCHS = 128, 32, 2
 
 # Kernel vs plain tolerances. Both accumulate the same fp32 products (bf16
 # inputs are widened exactly), in another order: logits of magnitude ~1
@@ -384,6 +396,7 @@ def _category(name: str) -> str:
     n = name.lower()
     for cat, keys in (("score_logits kernel", ("score_logits",
                                                "logits_f32", "logits_bf16")),
+                      ("scatter (densify, gather backward)", ("scatter",)),
                       ("optimizer (AdamW)", ("multi_tensor", "adam")),
                       ("memcpy/memset", ("memcpy", "memset")),
                       ("convolution", ("conv", "cudnn", "xmma", "fprop",
@@ -400,12 +413,13 @@ def _category(name: str) -> str:
 
 def breakdown(torch, request, wall_s, what="request"):
     """Device time of one profiled call of ``request``, by kernel
-    category; the idle share is against the unprofiled steady time."""
+    category; the idle share is against the unprofiled steady time.
+    Returns the device's busy ms (None if the profiler saw nothing)."""
     from ips_tpu_torch.utils.timing import device_kernels
     kernels = device_kernels(request)
     if not kernels:
         log("  breakdown: the profiler saw no device kernels")
-        return
+        return None
     busy_ms = sum(us for us, _ in kernels.values()) / 1e3
     cats = {}
     for name, (us, n) in kernels.items():
@@ -420,6 +434,7 @@ def breakdown(torch, request, wall_s, what="request"):
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     for name, (us, n) in top:
         log(f"    top: {us / 1e3:.3f} ms x{n} {name[:90]}")
+    return busy_ms
 
 
 def train_batches(torch, np, conf, K, device):
@@ -605,6 +620,171 @@ def phase_cli(torch, np, pred, patches):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def metrics_rows(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def check_metrics_rows(np, conf, rows, epochs):
+    """One train and one test line per epoch, each loss finite and >= 0,
+    each metric in [0, 1]."""
+    want = [(e, s) for e in epochs for s in ("train", "test")]
+    if [(r["epoch"], r["split"]) for r in rows] != want:
+        raise AssertionError(f"metrics lines {rows}, expected {want}")
+    for r in rows:
+        for t in conf.task_list:
+            loss, metric = r[f"{t.name}_loss"], r[f"{t.name}_{t.metric}"]
+            if not (np.isfinite(loss) and loss >= 0 and 0 <= metric <= 1):
+                raise AssertionError(f"epoch {r['epoch']} {r['split']} "
+                                     f"{t.name}: loss {loss}, {metric}")
+
+
+def phase_driver(torch, np, device, card):
+    """The training driver at the shipped config; returns score_logits'
+    launches in its 2-epoch run."""
+    from ips_tpu_torch import main as driver
+    from ips_tpu_torch.config import config_from_dict
+    from ips_tpu_torch.data.loader import DataLoader
+    from ips_tpu_torch.data.mnist import (MegapixelMNIST,
+                                          generate_megapixel_mnist)
+    from ips_tpu_torch.ops import score_kernel as sk
+    from ips_tpu_torch.ops.densify import densify_patches
+    from ips_tpu_torch.train.loop import train_one_epoch
+    from ips_tpu_torch.train.metrics import MetricsLogger
+    from ips_tpu_torch.train.steps import IPSTrainer
+    from ips_tpu_torch.utils.checkpoint import CheckpointManager
+    from ips_tpu_torch.utils.timing import bound_ms, device_ms
+    tmp = tempfile.mkdtemp(prefix="ips_tpu_torch_driver_")
+    try:
+        data, ckpt = os.path.join(tmp, "mnist"), os.path.join(tmp, "ckpt")
+        metrics = os.path.join(tmp, "metrics.jsonl")
+        t0 = time.perf_counter()
+        generate_megapixel_mnist(data, n_train=DRIVER_TRAIN_IMAGES,
+                                 n_test=DRIVER_TEST_IMAGES, width=1500,
+                                 height=1500, n_noise=50, seed=SEED,
+                                 digit_source="synthetic")
+        log(f"  generated {DRIVER_TRAIN_IMAGES} + {DRIVER_TEST_IMAGES} "
+            f"images at 1500x1500 in {time.perf_counter() - t0:.2f} s")
+        conf_d = dict(MNIST_CONFIG, data_dir=data, n_epoch=DRIVER_EPOCHS,
+                      n_epoch_warmup=1, checkpoint_dir=ckpt,
+                      checkpoint_every=1, metrics_path=metrics)
+        cfg = os.path.join(tmp, "config.json")
+        with open(cfg, "w") as f:
+            json.dump(conf_d, f)
+        conf = config_from_dict(conf_d)
+        n_iter = math.ceil((conf.N - conf.M) / conf.I)
+        steps = DRIVER_TRAIN_IMAGES // conf.B
+        evals = math.ceil(DRIVER_TEST_IMAGES / conf.B)
+
+        # (a) two epochs through the CLI entry point, on the card by default
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sk.logits.launches = 0
+        t0 = time.perf_counter()
+        trainer, _, _ = driver.main(["--config", cfg])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = sk.logits.launches
+        peak = torch.cuda.max_memory_allocated()
+        if trainer.device.type != "cuda":
+            raise AssertionError(f"the driver ran on {trainer.device}")
+        want = n_iter * DRIVER_EPOCHS * (steps + evals)
+        if launches != want:
+            raise AssertionError(f"score kernel launched {launches} times, "
+                                 f"expected {want}")
+        rows = metrics_rows(metrics)
+        check_metrics_rows(np, conf, rows, range(DRIVER_EPOCHS))
+        epoch_s = [r["train_seconds"] for r in rows if r["split"] == "train"]
+        log(f"  driver: {DRIVER_EPOCHS} epochs of {steps} steps (K = "
+            f"{conf.steps_per_dispatch}) and {evals} eval batches in "
+            f"{wall:.2f} s; {launches} score_logits launches "
+            f"({launches / (DRIVER_EPOCHS * (steps + evals)):g} per step and "
+            f"per eval batch); trainer step {trainer.step}")
+        log(f"  driver: epoch wall {epoch_s[0]:.4f} s (epoch 0, warm-up), "
+            f"{epoch_s[1]:.4f} s (epoch 1): {epoch_s[1] / steps * 1e3:.2f} ms "
+            f"per optimizer step; peak memory {peak / 2**20:.1f} MiB "
+            f"(max_memory_allocated); card {card}")
+        for r in rows:
+            log(f"    {r['split']} epoch {r['epoch']}: " + ", ".join(
+                f"{t.name} {r[f'{t.name}_loss']:.4f}/"
+                f"{r[f'{t.name}_{t.metric}']:.3f}" for t in conf.task_list))
+
+        # (b) densify on the card against the CPU on one real batch
+        batch = next(iter(DataLoader(MegapixelMNIST(conf, train=True),
+                                     batch_size=conf.B)))
+        hw = tuple(int(v) for v in batch["img_hw"][0])
+        on_card = trainer.densify(batch["input_idx"], batch["input_val"], hw)
+        on_cpu = densify_patches(torch.from_numpy(batch["input_idx"]),
+                                 torch.from_numpy(batch["input_val"]), hw,
+                                 conf.patch_size, conf.n_chan_in,
+                                 torch.bfloat16)
+        if not torch.equal(on_card.cpu(), on_cpu):
+            raise AssertionError("densify on the card differs from the CPU")
+        idx_d = torch.from_numpy(batch["input_idx"]).to(device)
+        val_d = torch.from_numpy(batch["input_val"]).to(device)
+        dens_ms = device_ms(lambda: densify_patches(
+            idx_d, val_d, hw, conf.patch_size, conf.n_chan_in,
+            torch.bfloat16))
+        # the (int32, fp32) pairs read once, the bf16 patches written once;
+        # one add a pair
+        dens_bound, dens_by = bound_ms(
+            idx_d.numel() * 8 + on_card.numel() * 2, idx_d.numel(),
+            "float32")
+        log(f"  densify {tuple(on_card.shape)} {on_card.dtype} from "
+            f"{batch['input_idx'].shape[1]} padded pixels a row: bitwise "
+            f"equal to the CPU's; device "
+            + ("not measured" if dens_ms is None else f"{dens_ms:.4f} ms")
+            + f" (bound {dens_bound:.4f} ms, {dens_by})")
+
+        # (c) the last checkpoint into a fresh trainer, bitwise
+        fresh = IPSTrainer(conf.replace(seed=conf.seed + 1))
+        if CheckpointManager(ckpt).restore(fresh) != DRIVER_EPOCHS:
+            raise AssertionError("restored the wrong epoch")
+        live, back = trainer.model.state_dict(), fresh.model.state_dict()
+        bad = [k for k in live if not torch.equal(live[k], back[k])]
+        s_live, s_back = (trainer.opt.state_dict()["state"],
+                          fresh.opt.state_dict()["state"])
+        bad += [f"opt {i}.{k}" for i in s_live for k in s_live[i]
+                if not torch.equal(s_live[i][k], s_back[i][k])]
+        if bad or fresh.step != trainer.step:
+            raise AssertionError(f"checkpoint round trip differs: {bad[:5]}")
+        log(f"  checkpoint epoch {DRIVER_EPOCHS}: {len(live)} tensors and "
+            f"AdamW's state restored bitwise into a fresh trainer")
+
+        # (d) resume with one more epoch: only epoch 2 trains (a second
+        # JSON config, since key=value overrides need pyyaml)
+        cfg_resume = os.path.join(tmp, "config_resume.json")
+        with open(cfg_resume, "w") as f:
+            json.dump(dict(conf_d, resume=True, n_epoch=DRIVER_EPOCHS + 1), f)
+        before = sk.logits.launches
+        driver.main(["--config", cfg_resume])
+        more = metrics_rows(metrics)[len(rows):]
+        check_metrics_rows(np, conf, more, [DRIVER_EPOCHS])
+        if sk.logits.launches - before != n_iter * (steps + evals):
+            raise AssertionError("the resumed run did not train one epoch")
+        log(f"  resume=true n_epoch={DRIVER_EPOCHS + 1}: trained epoch "
+            f"{DRIVER_EPOCHS} only ({more[0]['train_seconds']:.4f} s)")
+
+        # (e) where one epoch's time goes: loader, copies, densify, steps
+        loader, _ = driver.build_loaders(conf, *driver.build_datasets(
+            conf, "mnist"))
+        t0 = time.perf_counter()
+        n_batches = sum(1 for _ in loader)
+        log(f"  loader alone (host, {conf.n_worker} threads): "
+            f"{(time.perf_counter() - t0) * 1e3:.2f} ms for {n_batches} "
+            "batches of sparse pixels")
+        busy = breakdown(torch, lambda: train_one_epoch(
+            trainer, loader, 1, MetricsLogger(conf.task_list), conf),
+            epoch_s[1], what=f"driver epoch of {steps} steps (epoch 1)")
+        if busy is not None:
+            log(f"  driver step: device busy {busy / steps:.2f} ms of "
+                f"{epoch_s[1] / steps * 1e3:.2f} ms (idle share "
+                f"{1 - busy / (epoch_s[1] * 1e3):.3f}); card {card}")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_conv_probe(torch, np, device, card, pred):
     """conv_block against its plain version, the main path's own layer1
     timed at the same shape, then the layer1 probe with the kernel's
@@ -725,9 +905,12 @@ def main() -> int:
         train_launches = phase_train(torch, np, device, card)
     with Phase("cli"):
         phase_cli(torch, np, pred, patches)
-    entry["launches"] = launches + train_launches
+    with Phase("driver"):
+        driver_launches = phase_driver(torch, np, device, card)
+    entry["launches"] = launches + train_launches + driver_launches
     entry["launches_by_path"] = {"predict": launches,
-                                 "train": train_launches}
+                                 "train": train_launches,
+                                 "driver": driver_launches}
     with Phase("conv_probe"):
         conv_entry = phase_conv_probe(torch, np, device, card, pred)
     log(f"total {time.perf_counter() - t_start:.1f} s")

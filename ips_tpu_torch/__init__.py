@@ -7,7 +7,10 @@ module of the same name there. Ported so far: inference
 logits GEMM as a hand-written CUDA kernel (``csrc/score_logits.cu``), and
 the layer1 conv probe (``ips_tpu_torch.scripts.probe_conv``, counterpart
 of ``scripts/probe_conv.py``) with its fused BasicBlock kernel
-(``csrc/conv_block.cu``).
+(``csrc/conv_block.cu``); training (``train.steps.IPSTrainer``) and its
+driver for megapixel MNIST (``python -m ips_tpu_torch.main``: data
+generator and loader, epoch loops, sparse densify on the device,
+metrics, checkpoints).
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``.
 """
 

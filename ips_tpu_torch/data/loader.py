@@ -1,0 +1,178 @@
+"""Threaded, prefetching host data pipeline (counterpart of
+ips_tpu/data/loader.py).
+
+A thread pool materializes samples (numpy releases the GIL for the heavy
+densify/patchify work) and a bounded queue keeps ``prefetch`` batches
+ready. It is not ``torch.utils.data.DataLoader``: the batch order comes
+from numpy's ``default_rng(seed)`` drawn exactly as the JAX package's
+loader draws it, so one seed gives both packages the same batches.
+Pinned memory and the copy to the card are the training loop's
+(``ips_tpu_torch.train.loop``).
+"""
+
+from __future__ import annotations
+
+import queue
+import sys
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator, List, Optional, Sequence
+
+import numpy as np
+
+
+class Dataset:
+    """Minimal dataset protocol: __len__ + __getitem__ -> dict[str, ndarray]."""
+
+    def __len__(self) -> int:  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:  # pragma: no cover
+        raise NotImplementedError
+
+
+def _collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    return {k: np.stack([np.asarray(s[k]) for s in samples], axis=0)
+            for k in samples[0]}
+
+
+class DataLoader:
+    """Shuffling, batching, prefetching iterator over a Dataset; batches
+    are dicts of stacked numpy arrays."""
+
+    def __init__(self, dataset: Dataset, batch_size: int, shuffle: bool = False,
+                 num_workers: int = 0, drop_last: bool = False,
+                 prefetch: int = 2, seed: int = 0,
+                 collate_fn=None, process_index: int = 0,
+                 process_count: int = 1, bucket_fn=None):
+        """bucket_fn(i) -> hashable: when given, every batch holds samples
+        of one bucket only (e.g. one padded shape), so variable-N datasets
+        can batch more than one row. Within-bucket order and the order of
+        batches are both shuffled when shuffle=True.
+
+        process_index/process_count: a multi-process run's share of each
+        batch; only one process is ported.
+        """
+        if process_count > 1 or process_index != 0:
+            raise NotImplementedError(
+                "a process-sharded DataLoader (process_count > 1) is not "
+                "ported yet: ROADMAP.md queue 1, item 6 (export / quant / "
+                "parallel)")
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.num_workers = max(0, num_workers)
+        self.drop_last = drop_last
+        self.prefetch = max(1, prefetch)
+        self.collate_fn = collate_fn or _collate
+        self.bucket_fn = bucket_fn
+        self._rng = np.random.default_rng(seed)
+        if bucket_fn is not None:
+            self._bucket_groups = {}
+            for i in range(len(dataset)):
+                self._bucket_groups.setdefault(bucket_fn(i), []).append(i)
+            if self.drop_last:
+                # fixed bucket membership: drop_last loses the same samples
+                # every epoch, unlike the unbucketed ragged tail
+                lost = sum(len(g) % self.batch_size
+                           for g in self._bucket_groups.values())
+                if lost:
+                    print(f"warning: bucket-batched loader with drop_last "
+                          f"permanently excludes {lost} samples in "
+                          f"partial per-bucket batches", file=sys.stderr)
+
+    def _n_batches(self, n: int) -> int:
+        if self.drop_last:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
+
+    def __len__(self) -> int:
+        if self.bucket_fn is not None:
+            return sum(self._n_batches(len(g))
+                       for g in self._bucket_groups.values())
+        return self._n_batches(len(self.dataset))
+
+    def _batch_indices(self) -> List[np.ndarray]:
+        if self.bucket_fn is not None:
+            batches = []
+            for key in sorted(self._bucket_groups):
+                g = np.asarray(self._bucket_groups[key])
+                if self.shuffle:
+                    self._rng.shuffle(g)
+                batches.extend(
+                    g[j * self.batch_size:(j + 1) * self.batch_size]
+                    for j in range(self._n_batches(len(g))))
+            if self.shuffle:
+                self._rng.shuffle(batches)
+            return batches
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            self._rng.shuffle(idx)
+        return [idx[i * self.batch_size:(i + 1) * self.batch_size]
+                for i in range(len(self))]
+
+    def skip_epochs(self, k: int) -> None:
+        """Advance the shuffle stream past ``k`` epochs without loading
+        data, so that a run resumed at epoch k sees the batch order an
+        unbroken run saw there."""
+        for _ in range(max(0, k)):
+            self._batch_indices()
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        batches = self._batch_indices()
+        if self.num_workers == 0:
+            for b in batches:
+                yield self.collate_fn([self.dataset[int(i)] for i in b])
+            return
+        yield from self._iter_threaded(batches)
+
+    def _iter_threaded(self, batches: List[np.ndarray]):
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        sentinel = object()
+        error: List[Optional[BaseException]] = [None]
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            # bounded put that notices an abandoned consumer
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    def load(b):
+                        samples = list(pool.map(
+                            lambda i: self.dataset[int(i)], b))
+                        return self.collate_fn(samples)
+                    for b in batches:
+                        if not put(load(b)):
+                            return
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                error[0] = e
+            finally:
+                put(sentinel)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is sentinel:
+                    break
+                yield item
+            t.join()
+            if error[0] is not None:
+                raise error[0]
+        finally:
+            # consumer broke out / raised: unblock and stop the producer
+            stop.set()
+            while not q.empty():
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break

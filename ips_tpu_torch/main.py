@@ -1,0 +1,176 @@
+"""Training driver CLI (counterpart of ips_tpu/main.py, one device).
+
+    python -m ips_tpu_torch.main --dataset mnist \\
+        --config config/mnist_config.yml data_dir=<dir> B=8 n_epoch=5
+    python -m ips_tpu_torch.main --config cfg.json --device cpu ...
+
+``--config`` takes YAML or JSON (``.json``). Any config key can be
+overridden as ``key=value``, parsed as a YAML scalar as in the JAX CLI;
+without pyyaml only a JSON config with no overrides loads. Checkpoints
+(``checkpoint_dir``, ``checkpoint_every``, ``resume``), per-epoch metrics
+as JSON lines (``metrics_path``), per-step loss lines (``log_every``) and
+a ``torch.profiler`` trace of the first epoch (``profile_dir``) work as in
+the JAX package. The run is on ``cuda`` unless ``--device`` says
+otherwise; without a card that raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import os
+import time
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from ips_tpu_torch.config import Config, load_config
+from ips_tpu_torch.train.loop import (check_ported_schedule, evaluate,
+                                      train_one_epoch)
+from ips_tpu_torch.train.metrics import MetricsLogger
+from ips_tpu_torch.train.steps import IPSTrainer
+from ips_tpu_torch.utils.profiling import EfficiencyTracker
+
+DATASETS = ("mnist", "traffic", "camelyon", "camelyon_e2e")
+
+
+def build_datasets(conf: Config, dataset: str):
+    if dataset == "mnist":
+        from ips_tpu_torch.data.mnist import MegapixelMNIST
+        return (MegapixelMNIST(conf, train=True),
+                MegapixelMNIST(conf, train=False))
+    if dataset == "traffic":
+        raise NotImplementedError(
+            "the traffic-sign dataset is not ported yet: ROADMAP.md queue "
+            "1, item 8 (traffic data)")
+    if dataset in ("camelyon", "camelyon_e2e"):
+        raise NotImplementedError(
+            f"the {dataset} dataset is not ported yet: ROADMAP.md queue 1, "
+            "item 3 (camelyon feature-mode path)")
+    raise ValueError(f"unknown dataset {dataset!r}")
+
+
+def build_loaders(conf: Config, train_data, test_data):
+    from ips_tpu_torch.data.loader import DataLoader
+
+    def bucket_fn(data):
+        # variable-N datasets batch > 1 rows by grouping same-bucket items
+        if conf.B_seq > 1 and hasattr(data, "bucket_of"):
+            return data.bucket_of
+        return None
+
+    train_loader = DataLoader(train_data, batch_size=conf.B_seq,
+                              shuffle=True, num_workers=conf.n_worker,
+                              seed=conf.seed,
+                              bucket_fn=bucket_fn(train_data))
+    test_loader = DataLoader(test_data, batch_size=conf.B_seq, shuffle=False,
+                             num_workers=conf.n_worker,
+                             bucket_fn=bucket_fn(test_data))
+    return train_loader, test_loader
+
+
+def build_trainer(conf: Config,
+                  device: Optional[Union[str, torch.device]] = None
+                  ) -> IPSTrainer:
+    """One-device trainer, weights drawn from ``conf.seed``."""
+    return IPSTrainer(conf, device=device)
+
+
+def _profiler(device: torch.device):
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts)
+
+
+def run(conf: Config, dataset: str,
+        device: Optional[Union[str, torch.device]] = None):
+    """Train ``conf.n_epoch`` epochs with an eval after each; returns
+    (trainer, train logger, test logger)."""
+    check_ported_schedule(conf)
+    np.random.seed(conf.seed)
+    print("Used config:")
+    print(conf.pretty(), flush=True)
+
+    train_data, test_data = build_datasets(conf, dataset)
+    train_loader, test_loader = build_loaders(conf, train_data, test_data)
+    trainer = build_trainer(conf, device)
+
+    ckpt_mgr = None
+    start_epoch = 0
+    last_saved = -1
+    if conf.checkpoint_dir:
+        from ips_tpu_torch.utils.checkpoint import CheckpointManager
+        ckpt_mgr = CheckpointManager(conf.checkpoint_dir)
+        if conf.resume:
+            start_epoch = ckpt_mgr.restore(trainer) or 0
+            # the shuffle stream as an unbroken run left it
+            train_loader.skip_epochs(start_epoch)
+
+    log_train = MetricsLogger(conf.task_list)
+    log_test = MetricsLogger(conf.task_list)
+    tracker = EfficiencyTracker(conf, trainer.device)
+
+    for epoch in range(start_epoch, conf.n_epoch):
+        profiling = bool(conf.profile_dir) and epoch == start_epoch
+        with (_profiler(trainer.device) if profiling
+              else contextlib.nullcontext()) as prof:
+            t_epoch = time.perf_counter()
+            lr = train_one_epoch(trainer, train_loader, epoch, log_train,
+                                 conf, tracker)
+            if trainer.device.type == "cuda":
+                torch.cuda.synchronize(trainer.device)
+            t_epoch = time.perf_counter() - t_epoch
+        if profiling:
+            os.makedirs(conf.profile_dir, exist_ok=True)
+            path = os.path.join(conf.profile_dir, f"epoch_{epoch}.json")
+            prof.export_chrome_trace(path)
+            print(f"profiler trace written to {path}", flush=True)
+        log_train.compute_metric()
+        log_train.print_stats(epoch, train=True, lr=lr)
+        print(f"epoch wall: {t_epoch:.2f}s", flush=True)
+        if conf.metrics_path:
+            log_train.write_jsonl(conf.metrics_path, epoch, "train", lr=lr,
+                                  train_seconds=t_epoch)
+
+        evaluate(trainer, test_loader, log_test, conf)
+        log_test.compute_metric()
+        log_test.print_stats(epoch, train=False)
+        if conf.metrics_path:
+            log_test.write_jsonl(conf.metrics_path, epoch, "test")
+
+        if ckpt_mgr and conf.checkpoint_every and \
+                (epoch + 1) % conf.checkpoint_every == 0:
+            ckpt_mgr.save(trainer, epoch + 1)
+            last_saved = epoch + 1
+
+    if ckpt_mgr and last_saved != conf.n_epoch and start_epoch < conf.n_epoch:
+        # a resumed run that had nothing left to train already has it
+        ckpt_mgr.save(trainer, conf.n_epoch)
+    return trainer, log_train, log_test
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="ips_tpu_torch training driver")
+    p.add_argument("--dataset", default="mnist", choices=DATASETS)
+    p.add_argument("--config", default=None,
+                   help="config path, YAML or JSON (.json); without "
+                        "pyyaml, as on a machine with only torch and "
+                        "numpy, only JSON loads (default: "
+                        "config/<dataset>_config.yml)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda; 'cpu' to run there)")
+    p.add_argument("overrides", nargs="*",
+                   help="config overrides as key=value (YAML scalars; "
+                        "needs pyyaml, so without it put every key in a "
+                        "JSON config)")
+    a = p.parse_args(argv)
+    cfg_path = a.config or os.path.join("config", f"{a.dataset}_config.yml")
+    conf = load_config(cfg_path, a.overrides)
+    return run(conf, a.dataset, a.device)
+
+
+if __name__ == "__main__":
+    main()

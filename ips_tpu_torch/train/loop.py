@@ -1,0 +1,699 @@
+"""Epoch loops: loader batch -> selection -> optimizer step (counterpart of
+ips_tpu/train/loop.py, single process, eager selection).
+
+Each schedule of the JAX package's ``train_one_epoch`` (``loop.py:955``)
+and ``evaluate`` (``:1294``) is here, with the same batches, the same lr
+per step (``warmup_cosine_lr(data_it + 1, ...)``) and the same order:
+
+  * dense, B_seq == B: ``fused_multi_step`` over K = ``steps_per_dispatch``
+    batches, ``fused_step`` for a group of one (``_train_epoch_pipelined``
+    :922, ``_train_epoch_grouped`` :551; eval :1083);
+  * sparse, B_seq == B: ``fused_sparse_multi_step`` / ``fused_sparse_step``
+    likewise (``_train_epoch_sparse_grouped`` :732; eval :1131); a batch
+    that arrives dense takes the select-assemble-train step (eval: the
+    dense fused eval) alone (``_prep_sparse`` :582);
+  * B_seq < B with K > 1: r = B / B_seq loader batches to one
+    ``fused_assembled_*`` step, K of them grouped (``:768``, eval
+    :1179);
+  * otherwise the select-assemble-train schedule with ``BatchAssembler``
+    (:48), which also takes a ragged group of r and the epoch's last
+    partial optimizer batch.
+
+A partial last loader batch is zero-padded to B_seq with row weight 0
+(``_pad_loader_batch``), so it adds nothing to selection, loss or
+metrics. A trailing group shorter than K runs as single steps, so no
+fake step touches BatchNorm statistics or weight decay. The JAX
+package keeps separate K = 1 loops for its asynchronous staging, which
+the port does not have: here K = 1 is the grouped driver with groups of
+one.
+
+Randomness: every step's ``torch.Generator`` is seeded with
+``fold_seed(base, it)``, a pure function of the epoch's base seed
+``seed * 1_000_003 + epoch`` (eval: ``seed * 7_000_003 + 1``) and the
+loader batch index, as the JAX package folds ``it`` into
+``PRNGKey(base)``; the select-assemble-train step draws its dropout from
+``fold_seed(that seed, 1)``. So the grouped and the single-step
+schedules make the same updates, and a resumed run repeats an unbroken
+one. The streams themselves differ from ``jax.random``'s.
+
+Loader batches are moved to the device ahead of use, at most
+``prefetch_depth`` in flight (at least K + 1 for a grouped schedule and
+r * K + 1 for an assembled one, whose group is stacked on the device),
+from pinned host memory with ``non_blocking=True``. The streaming
+(``eager: false``) and multi-host schedules are not ported and raise.
+"""
+
+from __future__ import annotations
+
+from collections import deque
+from functools import partial
+from typing import Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ips_tpu_torch.config import Config
+from ips_tpu_torch.train.schedule import warmup_cosine_lr
+from ips_tpu_torch.train.steps import IPSTrainer
+from ips_tpu_torch.utils.profiling import EfficiencyTracker
+
+_MASK64 = (1 << 64) - 1
+
+
+def fold_seed(seed: int, data: int) -> int:
+    """A generator seed for (``seed``, ``data``): splitmix64 of their
+    combination, cut to 63 bits. Pure, so a step's randomness depends on
+    nothing but its place in the run."""
+    z = (seed * 0x9E3779B97F4A7C15 + data + 0x632BE59BD9B4E019) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return (z ^ (z >> 31)) >> 1
+
+
+def train_base_seed(seed: int, epoch: int) -> int:
+    return seed * 1_000_003 + epoch
+
+
+def eval_base_seed(seed: int) -> int:
+    return seed * 7_000_003 + 1
+
+
+def check_ported_schedule(conf: Config) -> None:
+    """Raise for a schedule the port does not have, before any step."""
+    if not conf.eager:
+        raise NotImplementedError(
+            "eager: false (streaming selection from host memory) is not "
+            "ported yet: ROADMAP.md queue 1, item 5 (streaming)")
+    if conf.multihost or conf.num_processes > 1:
+        raise NotImplementedError(
+            "multi-process training (the multi-host schedules, "
+            "_epoch_assembled_mh among them) is not ported yet: "
+            "ROADMAP.md queue 1, item 6 (export / quant / parallel)")
+
+
+def _np(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def _to_host(task_losses, preds):
+    return ({k: float(_np(v)) for k, v in task_losses.items()},
+            {k: _np(v) for k, v in preds.items()})
+
+
+def _host(res):
+    loss, task_losses, preds = res
+    return (_np(loss), {k: _np(v) for k, v in task_losses.items()},
+            {k: _np(v) for k, v in preds.items()})
+
+
+def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _lr(conf: Config, epoch: int, steps_per_epoch: int, it: int) -> float:
+    return warmup_cosine_lr(epoch * steps_per_epoch + it + 1,
+                            steps_per_epoch, conf.n_epoch,
+                            conf.n_epoch_warmup, conf.lr)
+
+
+def _labels_from_batch(conf: Config, batch: Dict[str, np.ndarray]
+                       ) -> Dict[str, np.ndarray]:
+    labels = {}
+    for t in conf.task_list:
+        arr = np.asarray(batch[t.name])
+        if t.metric == "multilabel_accuracy":
+            labels[t.name] = np.asarray(arr, np.float32)
+        else:
+            labels[t.name] = np.asarray(arr, np.int32)
+    return labels
+
+
+def _batch_mask(batch: Dict[str, np.ndarray], B: int, N: int) -> np.ndarray:
+    if "mask" in batch:
+        return np.asarray(batch["mask"], bool)
+    return np.ones((B, N), dtype=bool)
+
+
+def _maybe_log_step(conf: Config, data_it: int, loss, lr: float):
+    """Optional per-step stdout logging (conf.log_every; waits for the
+    device)."""
+    if conf.log_every and (data_it + 1) % conf.log_every == 0:
+        print(f"step {data_it + 1}: loss {float(_np(loss)):.5f}, "
+              f"lr {lr:.3g}", flush=True)
+
+
+def _pad_loader_batch(conf: Config, batch: Dict[str, np.ndarray]):
+    """Zero-pad a partial last loader batch up to B_seq; returns (batch,
+    row_weights). Padded rows carry weight 0 and an all-False patch mask,
+    so they never reach selection, loss or metrics."""
+    ref_key = "input" if "input" in batch else "input_idx"
+    n = batch[ref_key].shape[0]
+    weights = np.ones(n, np.float32)
+    if n == conf.B_seq:
+        return batch, weights
+    pad = conf.B_seq - n
+    N = batch["input"].shape[1] if "input" in batch else conf.N
+    out = {}
+    for k, v in batch.items():
+        v = np.asarray(v)
+        out[k] = np.concatenate(
+            [v, np.zeros((pad,) + v.shape[1:], v.dtype)])
+    if "mask" not in batch:
+        out["mask"] = np.concatenate(
+            [np.ones((n, N), bool), np.zeros((pad, N), bool)])
+    return out, np.concatenate([weights, np.zeros(pad, np.float32)])
+
+
+class BatchAssembler:
+    """Accumulates B_seq-row selections into one (B, M, ...) train batch,
+    zero-padded to B with weight-0 rows."""
+
+    def __init__(self, conf: Config):
+        self.conf = conf
+        self.reset()
+
+    def reset(self):
+        self._patches, self._pos, self._masks = [], [], []
+        self._weights: list = []
+        self._labels: Dict[str, list] = {t.name: []
+                                         for t in self.conf.task_list}
+        self.n_prep = 0
+
+    def add(self, mem_patch, mem_pos, mem_mask, labels, row_weights):
+        self._patches.append(mem_patch)
+        if mem_pos is not None:
+            self._pos.append(mem_pos)
+        self._masks.append(mem_mask)
+        self._weights.append(np.asarray(row_weights, np.float32))
+        for k, v in labels.items():
+            self._labels[k].append(v)
+        self.n_prep += mem_patch.shape[0]
+
+    @property
+    def full(self) -> bool:
+        return self.n_prep >= self.conf.B
+
+    def take(self):
+        """(patch, pos, mask, labels, weights), each padded to B rows."""
+        B, n = self.conf.B, self.n_prep
+
+        def pad(xs):
+            x = torch.cat(xs)
+            if n == B:
+                return x
+            return torch.cat([x, x.new_zeros((B - n,) + x.shape[1:])])
+
+        patch = pad(self._patches)
+        pos = pad(self._pos) if self._pos else None
+        mask = pad(self._masks)
+        labels = {k: pad(v) for k, v in self._labels.items()}
+        weights = torch.from_numpy(np.concatenate(
+            self._weights + [np.zeros(B - n, np.float32)])).to(patch.device)
+        self.reset()
+        return patch, pos, mask, labels, weights
+
+
+class _Prepped(NamedTuple):
+    """One loader batch on the device, with the host copies of its labels
+    and row weights kept for the metrics."""
+    it: int
+    payload: dict
+    labels: dict
+    row_weights: np.ndarray
+    seed: int
+
+
+def _prefetched(iterable, prepare, depth: int):
+    """Yield prepare(item), keeping up to ``depth`` prepared items (their
+    copies to the device issued) ahead of the consumer."""
+    buf = deque()
+    for item in iterable:
+        buf.append(prepare(item))
+        if len(buf) >= max(depth, 1):
+            yield buf.popleft()
+    while buf:
+        yield buf.popleft()
+
+
+def _put_common(trainer, labels, row_weights) -> dict:
+    put = partial(_to_device, device=trainer.device)
+    return {"labels": {k: put(v) for k, v in labels.items()},
+            "w": put(row_weights)}
+
+
+def _prep_fused(trainer: IPSTrainer, conf: Config, base: int, ib) -> _Prepped:
+    """A dense loader batch on the device; a sparse one is densified there
+    (the dense schedules' form of a sparse batch)."""
+    it, batch = ib
+    batch, row_weights = _pad_loader_batch(conf, batch)
+    labels = _labels_from_batch(conf, batch)
+    payload = _put_common(trainer, labels, row_weights)
+    if "input" in batch:
+        B_seq, N = batch["input"].shape[:2]
+        payload["patches"] = _to_device(batch["input"], trainer.device)
+    else:
+        B_seq, N = batch["input_idx"].shape[0], conf.N
+        payload["patches"] = trainer.densify(
+            _to_device(batch["input_idx"], trainer.device),
+            _to_device(batch["input_val"], trainer.device),
+            tuple(int(v) for v in batch["img_hw"][0]))
+    payload["mask"] = _to_device(_batch_mask(batch, B_seq, N), trainer.device)
+    payload["kind"] = "dense"
+    return _Prepped(it, payload, labels, row_weights, fold_seed(base, it))
+
+
+def _prep_sparse(trainer: IPSTrainer, conf: Config, base: int,
+                 ib) -> _Prepped:
+    """A sparse loader batch on the device as (idx, val) pairs; a batch
+    that arrives dense takes the dense form (kind 'dense')."""
+    it, batch = ib
+    if "input_idx" not in batch:
+        return _prep_fused(trainer, conf, base, ib)
+    batch, row_weights = _pad_loader_batch(conf, batch)
+    labels = _labels_from_batch(conf, batch)
+    put = partial(_to_device, device=trainer.device)
+    payload = _put_common(trainer, labels, row_weights)
+    payload.update(
+        idx=put(batch["input_idx"]), val=put(batch["input_val"]),
+        mask=put(_batch_mask(batch, batch["input_idx"].shape[0], conf.N)),
+        hw=tuple(int(v) for v in batch["img_hw"][0]), kind="sparse")
+    return _Prepped(it, payload, labels, row_weights, fold_seed(base, it))
+
+
+def _stack(group, key):
+    return torch.stack([p.payload[key] for p in group])
+
+
+def _stack_labels(group):
+    return {k: torch.stack([p.payload["labels"][k] for p in group])
+            for k in group[0].payload["labels"]}
+
+
+def _log_train_step(conf, tracker, logger, epoch, data_it, is_last, lr,
+                    loss, task_losses, preds, labels, weights):
+    """Shared post-step bookkeeping: tracker, optional step log, metrics."""
+    if tracker is not None:
+        tracker.stop(epoch, data_it, is_last)
+    _maybe_log_step(conf, data_it, loss, lr)
+    tl, pr = _to_host(task_losses, preds)
+    logger.update(tl, pr, {k: _np(v) for k, v in labels.items()},
+                  weights=_np(weights))
+
+
+def _select_into(trainer: IPSTrainer, assembler: BatchAssembler,
+                 p: _Prepped):
+    """Select one loader batch with its own generator, into the
+    assembler."""
+    q = p.payload
+    mem_patch, mem_pos, _, mem_mask = trainer.select(
+        q["patches"], q["mask"], trainer.new_generator(p.seed))
+    assembler.add(mem_patch, mem_pos, mem_mask, q["labels"], p.row_weights)
+
+
+def _assembler_train(trainer, conf, assembler, logger, tracker, epoch,
+                     steps_per_epoch, last: _Prepped, is_last: bool) -> float:
+    """The optimizer step over what the assembler holds; its lr and
+    dropout generator come from the last loader batch in it."""
+    patch, pos, mmask, lab, weights = assembler.take()
+    lr = _lr(conf, epoch, steps_per_epoch, last.it)
+    loss, task_losses, preds = trainer.train_step(
+        patch, pos, mmask, lab, weights,
+        trainer.new_generator(fold_seed(last.seed, 1)), lr)
+    _log_train_step(conf, tracker, logger, epoch,
+                    epoch * steps_per_epoch + last.it, is_last, lr, loss,
+                    task_losses, preds, lab, weights)
+    return lr
+
+
+def _grouped_epoch(loader, epoch, logger, conf, steps_per_epoch, prep,
+                   dispatch_multi, dispatch_single, group_key, K,
+                   tracker=None, train=True):
+    """Shared driver of the B_seq == B schedules: a full group of K > 1
+    prepared batches that agree on ``group_key`` goes to
+    ``dispatch_multi``; a group of one (K = 1), a shorter or a mixed group
+    runs its batches through ``dispatch_single`` in order, each timed by
+    ``tracker``."""
+    last_lr = 0.0
+
+    def log_step(p, lr, loss, tl, pr):
+        if train:
+            _maybe_log_step(conf, epoch * steps_per_epoch + p.it, loss, lr)
+        logger.update(tl, pr, p.labels, weights=p.row_weights)
+
+    def run_group(group):
+        nonlocal last_lr
+        if train:
+            lrs = [_lr(conf, epoch, steps_per_epoch, p.it) for p in group]
+            last_lr = lrs[-1]
+        else:
+            lrs = [None] * len(group)
+        if len(group) == K and len({group_key(p) for p in group}) == 1:
+            losses, task_losses, preds = _host(dispatch_multi(group, lrs))
+            for j, p in enumerate(group):
+                log_step(p, lrs[j], losses[j],
+                         {k: float(v[j]) for k, v in task_losses.items()},
+                         {k: v[j] for k, v in preds.items()})
+            return
+        for p, lr in zip(group, lrs):
+            if tracker is not None:
+                tracker.start()
+            loss, task_losses, preds = dispatch_single(p, lr)
+            if tracker is not None:
+                tracker.stop(epoch, epoch * steps_per_epoch + p.it,
+                             p.it == steps_per_epoch - 1)
+            tl, pr = _to_host(task_losses, preds)
+            log_step(p, lr, loss, tl, pr)
+
+    depth = max(conf.prefetch_depth, K + 1) if K > 1 else conf.prefetch_depth
+    group = []
+    for item in _prefetched(enumerate(loader), prep, depth):
+        group.append(item)
+        if len(group) == K:
+            run_group(group)
+            group = []
+    if group:
+        run_group(group)
+    return last_lr
+
+
+def _dense_key(p):
+    return tuple(p.payload["patches"].shape)
+
+
+def _sparse_group_key(p):
+    """Sparse batches group by image size; a dense-degraded batch never
+    groups (there is no mixed multi-step)."""
+    if p.payload["kind"] == "dense":
+        return ("dense", p.it)
+    return ("sparse",) + tuple(p.payload["hw"])
+
+
+# ---------------------------------------------------------------- training
+def _train_epoch_grouped(trainer, loader, epoch, logger, conf, base,
+                         steps_per_epoch, K, tracker):
+    def dispatch_multi(group, lrs):
+        return trainer.fused_multi_step(
+            _stack(group, "patches"), _stack(group, "mask"),
+            _stack_labels(group), _stack(group, "w"),
+            [trainer.new_generator(p.seed) for p in group], lrs)
+
+    def dispatch_single(p, lr):
+        q = p.payload
+        return trainer.fused_step(q["patches"], q["mask"], q["labels"],
+                                  q["w"], trainer.new_generator(p.seed), lr)
+
+    return _grouped_epoch(loader, epoch, logger, conf, steps_per_epoch,
+                          partial(_prep_fused, trainer, conf, base),
+                          dispatch_multi, dispatch_single, _dense_key, K,
+                          tracker)
+
+
+def _sparse_single_step(trainer, p, lr):
+    q = p.payload
+    if q["kind"] == "dense":
+        # a dense batch on the sparse path: the select-assemble-train
+        # step (select with the batch's generator, dropout from fold 1)
+        mem_patch, mem_pos, _, mem_mask = trainer.select(
+            q["patches"], q["mask"], trainer.new_generator(p.seed))
+        return trainer.train_step(
+            mem_patch, mem_pos, mem_mask, q["labels"], q["w"],
+            trainer.new_generator(fold_seed(p.seed, 1)), lr)
+    return trainer.fused_sparse_step(
+        q["idx"], q["val"], q["hw"], q["mask"], q["labels"], q["w"],
+        trainer.new_generator(p.seed), lr)
+
+
+def _train_epoch_sparse_grouped(trainer, loader, epoch, logger, conf, base,
+                                steps_per_epoch, K, tracker):
+    def dispatch_multi(group, lrs):
+        return trainer.fused_sparse_multi_step(
+            _stack(group, "idx"), _stack(group, "val"),
+            group[0].payload["hw"], _stack(group, "mask"),
+            _stack_labels(group), _stack(group, "w"),
+            [trainer.new_generator(p.seed) for p in group], lrs)
+
+    return _grouped_epoch(loader, epoch, logger, conf, steps_per_epoch,
+                          partial(_prep_sparse, trainer, conf, base),
+                          dispatch_multi, partial(_sparse_single_step,
+                                                  trainer),
+                          _sparse_group_key, K, tracker)
+
+
+def _assembled_item(group, lr=None):
+    """r same-shape prepared loader batches as one optimizer batch."""
+    return {
+        "p": _stack(group, "patches"), "m": _stack(group, "mask"),
+        "lab": {k: torch.cat([p.payload["labels"][k] for p in group])
+                for k in group[0].payload["labels"]},
+        "w": torch.cat([p.payload["w"] for p in group]),
+        "seeds": [p.seed for p in group], "lr": lr, "preps": group}
+
+
+def _assembled_epoch(loader, conf, prep, make_item, flush, legacy):
+    """Shared driver for B_seq < B with K > 1: every r loader batches of
+    one shape become an item, K items one grouped dispatch (``flush``);
+    a mixed-shape r-group and the epoch's last partial optimizer batch
+    take the select-assemble schedule (``legacy``), in order."""
+    r = conf.B // conf.B_seq
+    K = conf.steps_per_dispatch
+    pending, group = [], []
+    for p in _prefetched(enumerate(loader), prep,
+                         max(conf.prefetch_depth, r * K + 1)):
+        group.append(p)
+        if len(group) < r:
+            continue
+        if len({_dense_key(q) for q in group}) == 1:
+            pending.append(make_item(group))
+            if len(pending) == K:
+                flush(pending)
+                pending = []
+        else:
+            flush(pending)
+            pending = []
+            legacy(group)
+        group = []
+    flush(pending)
+    if group:
+        legacy(group)
+
+
+def _train_epoch_assembled(trainer, loader, epoch, logger, conf, base,
+                           steps_per_epoch):
+    """r = B / B_seq loader batches to one fused_assembled step, K steps a
+    group; each loader batch keeps its own selection generator, and the
+    train generator and lr come from the optimizer batch's last loader
+    batch, as in the select-assemble-train schedule."""
+    K = conf.steps_per_dispatch
+    last_lr = 0.0
+    gen = trainer.new_generator
+
+    def make_item(group):
+        return _assembled_item(
+            group, _lr(conf, epoch, steps_per_epoch, group[-1].it))
+
+    def log_opt_step(i, loss, task_losses, preds):
+        preps = i["preps"]
+        _maybe_log_step(conf, epoch * steps_per_epoch + preps[-1].it, loss,
+                        i["lr"])
+        tl, pr = _to_host(task_losses, preds)
+        logger.update(tl, pr,
+                      {k: np.concatenate([p.labels[k] for p in preps])
+                       for k in preps[0].labels},
+                      weights=np.concatenate([p.row_weights for p in preps]))
+
+    def flush(items):
+        nonlocal last_lr
+        if not items:
+            return
+        train_gens = [gen(fold_seed(i["preps"][-1].seed, 1)) for i in items]
+        if len(items) == K and len({tuple(i["p"].shape) for i in items}) == 1:
+            losses, task_losses, preds = _host(
+                trainer.fused_assembled_multi_step(
+                    torch.stack([i["p"] for i in items]),
+                    torch.stack([i["m"] for i in items]),
+                    {k: torch.stack([i["lab"][k] for i in items])
+                     for k in items[0]["lab"]},
+                    torch.stack([i["w"] for i in items]),
+                    [[gen(s) for s in i["seeds"]] for i in items],
+                    train_gens, [i["lr"] for i in items]))
+            for j, i in enumerate(items):
+                log_opt_step(i, losses[j],
+                             {k: v[j] for k, v in task_losses.items()},
+                             {k: v[j] for k, v in preds.items()})
+        else:
+            for i, tg in zip(items, train_gens):
+                log_opt_step(i, *trainer.fused_assembled_step(
+                    i["p"], i["m"], i["lab"], i["w"],
+                    [gen(s) for s in i["seeds"]], tg, i["lr"]))
+        last_lr = items[-1]["lr"]
+
+    def legacy(preps):
+        nonlocal last_lr
+        assembler = BatchAssembler(conf)
+        for p in preps:
+            _select_into(trainer, assembler, p)
+        last_lr = _assembler_train(trainer, conf, assembler, logger, None,
+                                   epoch, steps_per_epoch, preps[-1], False)
+
+    _assembled_epoch(loader, conf, partial(_prep_fused, trainer, conf, base),
+                     make_item, flush, legacy)
+    return last_lr
+
+
+def train_one_epoch(trainer: IPSTrainer, loader, epoch: int, logger,
+                    conf: Config,
+                    tracker: Optional[EfficiencyTracker] = None) -> float:
+    """One training epoch; returns the last step's lr."""
+    check_ported_schedule(conf)
+    steps_per_epoch = len(loader)
+    base = train_base_seed(conf.seed, epoch)
+    tracker = tracker or EfficiencyTracker(conf, trainer.device)
+    # track_efficiency keeps the single-step schedules, timed per step
+    grouped = conf.steps_per_dispatch > 1 and not conf.track_efficiency
+    if conf.B_seq == conf.B:
+        # sparse_input chooses the schedule; _prep_sparse sends a batch
+        # that arrives dense down the dense one
+        epoch_fn = (_train_epoch_sparse_grouped if conf.sparse_input
+                    else _train_epoch_grouped)
+        last_lr = epoch_fn(trainer, loader, epoch, logger, conf, base,
+                           steps_per_epoch,
+                           conf.steps_per_dispatch if grouped else 1, tracker)
+        tracker.finish_epoch(epoch)
+        return last_lr
+    if grouped and not conf.sparse_input:
+        return _train_epoch_assembled(trainer, loader, epoch, logger, conf,
+                                      base, steps_per_epoch)
+
+    # B_seq < B: select each loader batch, train once B rows are in
+    last_lr = 0.0
+    assembler = BatchAssembler(conf)
+    for ib in enumerate(loader):
+        is_last = ib[0] == steps_per_epoch - 1
+        if assembler.n_prep == 0:
+            tracker.start()
+        p = _prep_fused(trainer, conf, base, ib)
+        _select_into(trainer, assembler, p)
+        if assembler.full or is_last:
+            last_lr = _assembler_train(trainer, conf, assembler, logger,
+                                       tracker, epoch, steps_per_epoch, p,
+                                       is_last)
+    tracker.finish_epoch(epoch)
+    return last_lr
+
+
+# -------------------------------------------------------------- evaluation
+def _eval_fused_single(trainer, p, lr=None):
+    q = p.payload
+    if q["kind"] == "sparse":
+        return trainer.fused_sparse_eval_step(
+            q["idx"], q["val"], q["hw"], q["mask"], q["labels"], q["w"],
+            trainer.new_generator(p.seed))
+    return trainer.fused_eval_step(q["patches"], q["mask"], q["labels"],
+                                   q["w"], trainer.new_generator(p.seed))
+
+
+def _eval_pipelined(trainer, loader, logger, conf, base):
+    def dispatch_multi(group, lrs):
+        return trainer.fused_eval_multi_step(
+            _stack(group, "patches"), _stack(group, "mask"),
+            _stack_labels(group), _stack(group, "w"),
+            [trainer.new_generator(p.seed) for p in group])
+
+    _grouped_epoch(loader, 0, logger, conf, len(loader),
+                   partial(_prep_fused, trainer, conf, base), dispatch_multi,
+                   partial(_eval_fused_single, trainer), _dense_key,
+                   conf.steps_per_dispatch, train=False)
+
+
+def _eval_sparse_pipelined(trainer, loader, logger, conf, base):
+    def dispatch_multi(group, lrs):
+        return trainer.fused_sparse_eval_multi_step(
+            _stack(group, "idx"), _stack(group, "val"),
+            group[0].payload["hw"], _stack(group, "mask"),
+            _stack_labels(group), _stack(group, "w"),
+            [trainer.new_generator(p.seed) for p in group])
+
+    _grouped_epoch(loader, 0, logger, conf, len(loader),
+                   partial(_prep_sparse, trainer, conf, base), dispatch_multi,
+                   partial(_eval_fused_single, trainer), _sparse_group_key,
+                   conf.steps_per_dispatch, train=False)
+
+
+def _eval_assembled_step(trainer, logger, assembler):
+    patch, pos, mmask, lab, weights = assembler.take()
+    _, task_losses, preds = trainer.eval_step(patch, pos, mmask, lab,
+                                              weights)
+    tl, pr = _to_host(task_losses, preds)
+    logger.update(tl, pr, {k: _np(v) for k, v in lab.items()},
+                  weights=_np(weights))
+
+
+def _eval_assembled(trainer, loader, logger, conf, base):
+    """B_seq < B eval with K > 1: r loader batches to one
+    fused_assembled eval, K per group; the same selection generators as
+    the select-assemble schedule."""
+    K = conf.steps_per_dispatch
+    gen = trainer.new_generator
+
+    def log_item(i, task_losses, preds):
+        preps = i["preps"]
+        tl, pr = _to_host(task_losses, preds)
+        logger.update(tl, pr,
+                      {k: np.concatenate([p.labels[k] for p in preps])
+                       for k in preps[0].labels},
+                      weights=np.concatenate([p.row_weights for p in preps]))
+
+    def flush(items):
+        if not items:
+            return
+        if len(items) == K and len({tuple(i["p"].shape) for i in items}) == 1:
+            _, task_losses, preds = _host(
+                trainer.fused_assembled_eval_multi_step(
+                    torch.stack([i["p"] for i in items]),
+                    torch.stack([i["m"] for i in items]),
+                    {k: torch.stack([i["lab"][k] for i in items])
+                     for k in items[0]["lab"]},
+                    torch.stack([i["w"] for i in items]),
+                    [[gen(s) for s in i["seeds"]] for i in items]))
+            for j, i in enumerate(items):
+                log_item(i, {k: v[j] for k, v in task_losses.items()},
+                         {k: v[j] for k, v in preds.items()})
+            return
+        for i in items:
+            _, task_losses, preds = trainer.fused_assembled_eval_step(
+                i["p"], i["m"], i["lab"], i["w"],
+                [gen(s) for s in i["seeds"]])
+            log_item(i, task_losses, preds)
+
+    def legacy(preps):
+        assembler = BatchAssembler(conf)
+        for p in preps:
+            _select_into(trainer, assembler, p)
+        _eval_assembled_step(trainer, logger, assembler)
+
+    _assembled_epoch(loader, conf, partial(_prep_fused, trainer, conf, base),
+                     _assembled_item, flush, legacy)
+
+
+def evaluate(trainer: IPSTrainer, loader, logger, conf: Config) -> None:
+    """One evaluation pass over ``loader``."""
+    check_ported_schedule(conf)
+    steps_per_epoch = len(loader)
+    base = eval_base_seed(conf.seed)
+    if conf.B_seq == conf.B:
+        eval_fn = (_eval_sparse_pipelined if conf.sparse_input
+                   else _eval_pipelined)
+        return eval_fn(trainer, loader, logger, conf, base)
+    if conf.steps_per_dispatch > 1 and not conf.sparse_input:
+        return _eval_assembled(trainer, loader, logger, conf, base)
+
+    assembler = BatchAssembler(conf)
+    for ib in enumerate(loader):
+        _select_into(trainer, assembler,
+                     _prep_fused(trainer, conf, base, ib))
+        if assembler.full or ib[0] == steps_per_epoch - 1:
+            _eval_assembled_step(trainer, logger, assembler)

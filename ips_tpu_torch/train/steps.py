@@ -12,6 +12,13 @@ counter, and runs each phase over that one set of parameters:
   * ``fused_step``    — selection, then the train step on what it kept;
                         ``fused_multi_step`` runs K of them in order
   * ``fused_eval_step`` / ``fused_eval_multi_step`` — selection + eval
+  * ``fused_sparse_*``  — the same from sparse pixels, densified on the
+                        device inside each step (``conf.sparse_input``;
+                        ``steps.py:284-296, 513-561, 622-654, 804-832``
+                        there)
+  * ``fused_assembled_*`` — B_seq < B: r loader batches, each selected with
+                        its own generator, then one train or eval step
+                        over their B = r * B_seq rows (``:656-800``)
 
 As in the reference, ``train`` is passed to every module call: selection
 sees running statistics and no dropout while the train forward of the
@@ -33,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 from ips_tpu_torch.config import Config
 from ips_tpu_torch.models.ips_net import DTYPES, IPSModel, init_weights
 from ips_tpu_torch.models.transformer import pos_enc_1d_np
+from ips_tpu_torch.ops.densify import densify_patches
 from ips_tpu_torch.ops.selection import ips_select
 from ips_tpu_torch.utils.device import resolve_device
 
@@ -101,6 +109,12 @@ def _stacked(outs):
 def _step_slice(k: int, patches, mask, labels, weights):
     return (patches[k], None if mask is None else mask[k],
             {n: v[k] for n, v in labels.items()}, weights[k])
+
+
+def _cat_rows(outs):
+    """Per-slot selection tuples -> each field concatenated over rows."""
+    return tuple(None if xs[0] is None else torch.cat(xs)
+                 for xs in zip(*outs))
 
 
 class IPSTrainer:
@@ -335,3 +349,131 @@ class IPSTrainer:
             self._fused_impl(*_step_slice(k, patches, mask, labels, weights),
                              generators[k], float(lrs[k]))
             for k in range(patches.shape[0])])
+
+    # -- sparse input: densify on the device inside each step ---------------
+    def densify(self, flat_idx, values, img_hw) -> torch.Tensor:
+        """(B, nnz) sparse pixels (arrays or tensors) -> (B, N, ph, pw, C)
+        patches on the trainer's device, in the input dtype."""
+        conf = self.conf
+        return densify_patches(torch.as_tensor(flat_idx, device=self.device),
+                               torch.as_tensor(values, device=self.device),
+                               tuple(img_hw), conf.patch_size,
+                               n_chan=conf.n_chan_in,
+                               out_dtype=DTYPES[conf.input_dtype])
+
+    def _fused_sparse_impl(self, flat_idx, values, img_hw, mask, labels,
+                           weights, generator, lr):
+        # the dense batch is freed once selection has gathered what it kept
+        with torch.no_grad():
+            mem_patch, mem_pos, _, mem_mask = self._select_impl(
+                self.densify(flat_idx, values, img_hw), mask, generator)
+        return self._train_impl(mem_patch, mem_pos, mem_mask, labels,
+                                weights, generator, lr)
+
+    def fused_sparse_step(self, flat_idx, values, img_hw, mask, labels,
+                          weights, generator: Optional[torch.Generator],
+                          lr: float):
+        """Densify, select, one AdamW step (``conf.sparse_input``)."""
+        self._require_opt()
+        return self._fused_sparse_impl(flat_idx, values, img_hw, mask,
+                                       labels, weights, generator, lr)
+
+    def fused_sparse_multi_step(self, flat_idx, values, img_hw, mask, labels,
+                                weights,
+                                generators: Sequence[Optional[torch.Generator]],
+                                lrs: Sequence[float]):
+        """K sparse fused steps in order; a leading (K,) axis on every
+        batch input. Each step densifies its own batch, so one step's dense
+        batch is alive at a time."""
+        self._require_opt()
+        return _stacked([
+            self._fused_sparse_impl(
+                flat_idx[k], values[k], img_hw,
+                *_step_slice(k, flat_idx, mask, labels, weights)[1:],
+                generators[k], float(lrs[k]))
+            for k in range(flat_idx.shape[0])])
+
+    @torch.no_grad()
+    def fused_sparse_eval_step(self, flat_idx, values, img_hw, mask, labels,
+                               weights,
+                               generator: Optional[torch.Generator] = None):
+        """Densify, select, eval forward."""
+        return self.fused_eval_step(self.densify(flat_idx, values, img_hw),
+                                    mask, labels, weights, generator)
+
+    def fused_sparse_eval_multi_step(
+            self, flat_idx, values, img_hw, mask, labels, weights,
+            generators: Optional[Sequence[torch.Generator]] = None):
+        """K sparse eval batches on a leading (K,) axis."""
+        K = flat_idx.shape[0]
+        gens = generators if generators is not None else [None] * K
+        return _stacked([
+            self.fused_sparse_eval_step(
+                flat_idx[k], values[k], img_hw,
+                *_step_slice(k, flat_idx, mask, labels, weights)[1:],
+                gens[k])
+            for k in range(K)])
+
+    # -- assembled: r loader batches -> one optimizer step (B_seq < B) -------
+    def _select_slots(self, patches, mask, generators, return_emb=False):
+        """r selections over (r, B_seq, N, ...), each with its own
+        generator, concatenated into B = r * B_seq rows."""
+        r = patches.shape[0]
+        gens = generators if generators is not None else [None] * r
+        return _cat_rows([
+            self._select_impl(patches[j], None if mask is None else mask[j],
+                              gens[j], return_emb=return_emb)
+            for j in range(r)])
+
+    def _fused_assembled_impl(self, patches, mask, labels, weights,
+                              sel_generators, train_generator, lr):
+        with torch.no_grad():
+            mem_patch, mem_pos, _, mem_mask = self._select_slots(
+                patches, mask, sel_generators)
+        return self._train_impl(mem_patch, mem_pos, mem_mask, labels,
+                                weights, train_generator, lr)
+
+    def fused_assembled_step(self, patches, mask, labels, weights,
+                             sel_generators, train_generator, lr: float):
+        """One optimizer step from r stacked loader batches: patches
+        (r, B_seq, N, ...), mask (r, B_seq, N), labels / weights over the
+        B = r * B_seq rows, one selection generator per loader batch."""
+        self._require_opt()
+        return self._fused_assembled_impl(patches, mask, labels, weights,
+                                          sel_generators, train_generator,
+                                          lr)
+
+    def fused_assembled_multi_step(self, patches, mask, labels, weights,
+                                   sel_generators, train_generators, lrs):
+        """K assembled steps in order: patches (K, r, B_seq, N, ...),
+        labels / weights (K, B, ...), K lists of r selection generators,
+        K train generators, K lrs."""
+        self._require_opt()
+        return _stacked([
+            self._fused_assembled_impl(
+                *_step_slice(k, patches, mask, labels, weights),
+                sel_generators[k], train_generators[k], float(lrs[k]))
+            for k in range(patches.shape[0])])
+
+    @torch.no_grad()
+    def fused_assembled_eval_step(self, patches, mask, labels, weights,
+                                  sel_generators=None):
+        """One eval batch from r stacked loader batches (B_seq < B)."""
+        if self._reuse_eval_emb():
+            _, mem_pos, _, mem_mask, mem_emb = self._select_slots(
+                patches, mask, sel_generators, return_emb=True)
+            return self.eval_from_emb_step(mem_emb, mem_pos, mem_mask,
+                                           labels, weights)
+        mem_patch, mem_pos, _, mem_mask = self._select_slots(
+            patches, mask, sel_generators)
+        return self.eval_step(mem_patch, mem_pos, mem_mask, labels, weights)
+
+    def fused_assembled_eval_multi_step(self, patches, mask, labels, weights,
+                                        sel_generators=None):
+        """K assembled eval batches on a leading (K,) axis."""
+        K = patches.shape[0]
+        gens = sel_generators if sel_generators is not None else [None] * K
+        return _stacked([
+            self.fused_assembled_eval_step(
+                *_step_slice(k, patches, mask, labels, weights), gens[k])
+            for k in range(K)])

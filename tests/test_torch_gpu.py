@@ -252,3 +252,70 @@ def test_fused_multi_step_launches_kernel_per_chunk(cuda):
     assert losses.shape == (K,) and bool(torch.isfinite(losses).all())
     assert preds["multi"].shape == (K, conf.B, 10)
     assert tr.step == K
+
+
+# --------------------------------------------------- sparse input on the card
+def _sparse_batch(B, H, W, nnz, n_pad, seed):
+    """Sparse pixels as MegapixelMNIST pads them: sorted distinct indices,
+    then index-0 value-0 padding."""
+    rng = np.random.default_rng(seed)
+    idx = np.zeros((B, nnz + n_pad), np.int32)
+    val = np.zeros((B, nnz + n_pad), np.float32)
+    for b in range(B):
+        idx[b, :nnz] = np.sort(rng.choice(H * W, nnz, replace=False))
+        val[b, :nnz] = rng.random(nnz)
+    return torch.from_numpy(idx), torch.from_numpy(val)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_densify_on_card_equals_cpu(cuda, dtype):
+    from ips_tpu_torch.ops.densify import densify_patches
+    # the shipped megapixel-MNIST shape: 1500x1500 in 50x50 patches
+    idx, val = _sparse_batch(16, 1500, 1500, 7000, 1192, seed=4)
+    want = densify_patches(idx, val, (1500, 1500), (50, 50), 1, dtype)
+    got = densify_patches(idx.to(cuda), val.to(cuda), (1500, 1500),
+                          (50, 50), 1, dtype)
+    assert got.device.type == "cuda" and got.dtype == dtype
+    assert torch.equal(got.cpu(), want)
+
+
+def test_fused_sparse_step_selects_as_plain_scorer(no_tf32):
+    """A small fp32 sparse step on the card: the kernel-scored selection
+    inside it keeps the indices the plain scorer keeps on the densified
+    batch, with one kernel launch a chunk."""
+    from ips_tpu_torch.config import config_from_dict
+    from ips_tpu_torch.train.steps import IPSTrainer
+    from ips_tpu_torch.scripts.train_parity import SMALL_TRAIN
+    conf = config_from_dict(dict(SMALL_TRAIN, N=36, M=4, I=4,
+                                 sparse_input=True))
+    tr = IPSTrainer(conf)
+    cuda = no_tf32
+    idx, val = _sparse_batch(4, 96, 96, 900, 124, seed=7)
+    idx, val = idx.to(cuda), val.to(cuda)
+    rng = np.random.default_rng(8)
+    labels = {"majority": torch.from_numpy(rng.integers(0, 10, 4)).to(cuda),
+              "multi": torch.from_numpy((rng.random((4, 10)) < 0.5
+                                         ).astype(np.float32)).to(cuda)}
+    kept = []
+    select = tr._select_impl
+
+    def record(*a, **kw):
+        out = select(*a, **kw)
+        kept.append(out[2])
+        return out
+    tr._select_impl = record
+    dense = tr.densify(idx, val, (96, 96))
+    model = tr.model
+    with torch.no_grad():
+        from ips_tpu_torch.ops.selection import ips_select
+        plain = ips_select(
+            model.encode,
+            lambda e, m: sk.fast_scores(e, model.score_weights(), m),
+            dense, M=conf.M, I=conf.I, pos_table=tr.pos_table).mem_idx
+    before = sk.logits.launches
+    loss, _, _ = tr.fused_sparse_step(idx, val, (96, 96), None, labels,
+                                      torch.ones(4, device=cuda), None, 1e-3)
+    assert sk.logits.launches - before == 8      # ceil((36 - 4) / 4)
+    assert torch.equal(kept[0], plain)
+    assert bool(torch.isfinite(loss))

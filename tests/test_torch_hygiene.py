@@ -36,7 +36,11 @@ def test_sources_found():
             "ips_tpu_torch/ops/conv_block.py",
             "ips_tpu_torch/scripts/probe_conv.py",
             "ips_tpu_torch/scripts/kernel_times.py",
-            "ips_tpu_torch/utils/timing.py"} <= rel
+            "ips_tpu_torch/utils/timing.py",
+            "ips_tpu_torch/main.py",
+            "ips_tpu_torch/native.py",
+            "ips_tpu_torch/data/mnist.py",
+            "ips_tpu_torch/train/loop.py"} <= rel
 
 
 @pytest.mark.parametrize("path", SOURCES,
