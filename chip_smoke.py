@@ -38,7 +38,21 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                bitwise, a resumed run that trains only the next epoch, ms
                per step, peak memory and a profiler breakdown of one
                epoch with the device's idle share;
-  8. conv_probe — the fused BasicBlock kernel against its plain version
+  8. camelyon — the camelyon feature-mode path through the driver
+               (``ips_tpu_torch.main``) at the full width of
+               config/camelyon_config.yml (2048-dim features projected to
+               D = 512, M = I = 5000, B = 16 from B_seq = 1 slots, K = 4,
+               bf16, ln_fold) on a synthetic corpus made from the seed (64
+               train slides of 5001..10000 rows, one bucket; 16 test slides
+               of 2000..15000 rows, buckets 5000 to 15000): 2 epochs, 16
+               fp32 ``score_logits`` launches per optimizer step and one
+               per 5000-row chunk beyond the first M in eval, metrics
+               lines, one slide's selection against the plain scorer, ms
+               per step, peak memory and a profiler breakdown of one epoch
+               with the device's idle share. The card has no h5py, so
+               the slides stay in memory (``CamelyonFeatures(slides=)``)
+               and reach ``ips_tpu_torch.main.run``;
+  9. conv_probe — the fused BasicBlock kernel against its plain version
                at the layer1 shapes (1600, 13, 13, 64), paired
                (800, 13, 13, 128), a ragged one and layer2_block1's
                (1600, 7, 7, 128), with device times of kernel, plain
@@ -61,6 +75,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 
 # config/mnist_config.yml as a literal: the card machine has no pyyaml.
 # tests/test_torch_config.py holds it equal to the YAML file.
@@ -91,6 +106,25 @@ MNIST_CONFIG = {
     "steps_per_dispatch": 8,
 }
 
+# config/camelyon_config.yml as a literal, held equal to the YAML file by
+# the same test.
+CAMELYON_CONFIG = {
+    "n_epoch": 50, "B": 16, "B_seq": 1, "n_epoch_warmup": 10, "lr": 0.0003,
+    "wd": 0.1, "n_class": 1, "data_dir": "data/camelyon/dsets",
+    "train_fname": "feat_train_500ep.hdf5",
+    "test_fname": "feat_test_500ep.hdf5", "n_worker": 64,
+    "pin_memory": False, "eager": True, "eps": 1e-06, "seed": 0,
+    "track_efficiency": False, "track_epoch": 0, "is_image": False,
+    "enc_type": "resnet50", "pretrained": False, "n_chan_in": 2048,
+    "shuffle": True, "shuffle_style": "batch", "n_token": 1, "M": 5000,
+    "I": 5000, "use_pos": False, "H": 8, "D": 512, "D_k": 64, "D_v": 64,
+    "D_inner": 2048, "attn_dropout": 0.1, "dropout": 0.1,
+    "tasks": {"task0": {"id": 0, "name": "metastases", "act_fn": "sigmoid",
+                        "metric": "auc"}},
+    "compute_dtype": "bfloat16", "use_pallas": False, "mesh_data": 1,
+    "mesh_patch": 1, "ln_fold": True, "steps_per_dispatch": 4,
+}
+
 SEED = 0
 N_REQUESTS = 4
 N_TIMED_DISPATCHES = 3      # timed fused_multi_step calls after a warm-up
@@ -99,6 +133,11 @@ N_OVERFIT_STEPS = 20
 MNIST_TRAIN_IMAGES = 5000
 # phase driver: one K = 8 group of B = 16 a train epoch, 2 eval batches
 DRIVER_TRAIN_IMAGES, DRIVER_TEST_IMAGES, DRIVER_EPOCHS = 128, 32, 2
+# phase camelyon: (slides, rows drawn from [lo, hi)) of the synthetic
+# corpus; the train set is one K = 4 group of four B = 16 steps at the
+# reference's N = 10k bucket, the test set crosses buckets 5000..15000
+CAMELYON_TRAIN, CAMELYON_TEST = (64, (5001, 10001)), (16, (2000, 15001))
+CAMELYON_EPOCHS = 2
 
 # Kernel vs plain tolerances. Both accumulate the same fp32 products (bf16
 # inputs are widened exactly), in another order: logits of magnitude ~1
@@ -185,7 +224,7 @@ def phase_build():
 
 def phase_kernels(torch, np, device):
     """score_logits against its plain version; returns the JSON entry for
-    the main-path shape."""
+    the main-path shape, with every timed shape under ``shapes``."""
     from ips_tpu_torch.ops import score_kernel as sk
     from ips_tpu_torch.scripts.kernel_times import LOGITS_CASES, logits_bound
     from ips_tpu_torch.utils.timing import cuda_ms, device_ms
@@ -193,7 +232,7 @@ def phase_kernels(torch, np, device):
     # the timed shapes, the MNIST selection shape first, and a ragged L
     cases = LOGITS_CASES + (("ragged", 4, 1037, 128, 32, "float32"),)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    main_entry = None
+    main_entry, shapes = None, []
     for name, B, L, D, TH, dt in cases:
         x = torch.from_numpy(rng.standard_normal((B, L, D), np.float32)
                              ).to(device, dtypes[dt])
@@ -232,6 +271,11 @@ def phase_kernels(torch, np, device):
                 f"back-to-back loop {host[k] * 1e3:.2f} us")
         ms, plain_ms, lib_ms = (dev["kernel"], dev["plain"],
                                 dev["torch.matmul"])
+        if name != "ragged":
+            shapes.append({"case": name, "shape": [B, L, D, TH], "dtype": dt,
+                           "max_abs_err": err, "ms": ms,
+                           "plain_ms": plain_ms, "bound_ms": bound,
+                           "bound_by": bound_by, "library_ms": lib_ms})
         if main_entry is None:
             main_entry = {
                 "name": "score_logits", "route": "cuda",
@@ -258,6 +302,23 @@ def phase_kernels(torch, np, device):
     if got[1, -37:].max().item() > 1e-6:
         raise AssertionError("masked candidates took softmax mass")
     log("  masked scores: match plain; fully masked row uniform")
+
+    # the camelyon path's masked scores: one fp32 slide padded to its
+    # bucket, 7313 valid rows of 10000
+    L, D, TH, n_valid = 10000, 512, 8, 7313
+    x = torch.from_numpy(rng.standard_normal((1, L, D), np.float32)
+                         ).to(device)
+    w = torch.from_numpy(0.1 * rng.standard_normal((D, TH), np.float32)
+                         ).to(device)
+    mask = (torch.arange(L, device=device) < n_valid)[None]
+    got = sk.scores(x, w, mask)
+    torch.testing.assert_close(got, sk.fast_scores(x, w, mask),
+                               rtol=SCORES_RTOL, atol=SCORES_ATOL)
+    if got[0, n_valid:].max().item() > 1e-6:
+        raise AssertionError("padded rows of a slide took softmax mass")
+    log(f"  masked camelyon scores (1, {L}) with {n_valid} valid rows: "
+        "match plain; padded rows take no mass")
+    main_entry["shapes"] = shapes
     return main_entry
 
 
@@ -305,11 +366,37 @@ def near_tie_report(torch, pred, patches_dev, mask):
     return report
 
 
+def check_plain_selection(torch, np, pred, x, mask, idx):
+    """Selection scored by the plain version on the card gives the
+    kernel's indices ``idx``, or differs first at a near-tie: a gap at the
+    M-th place within twice the two scorers' largest difference."""
+    from ips_tpu_torch.ops import score_kernel as sk
+    from ips_tpu_torch.ops.selection import ips_select
+    model, conf = pred.trainer.model, pred.conf
+    with torch.inference_mode():
+        res = ips_select(
+            model.encode,
+            lambda e, m: sk.fast_scores(e, model.score_weights(), m),
+            x, M=conf.M, I=conf.I, pos_table=pred.trainer.pos_table,
+            mask=mask)
+    plain_idx = res.mem_idx.cpu().numpy()
+    if np.array_equal(plain_idx, idx):
+        log("  plain-scorer selection: identical indices")
+        return
+    report = near_tie_report(torch, pred, x, mask)
+    log(f"  plain-scorer selection differs in "
+        f"{int((plain_idx != idx).any(1).sum())} rows; first differing "
+        f"step: {report}")
+    if not report or report[0]["gap_at_M"] > 2 * report[0][
+            "max_score_diff"]:
+        raise AssertionError("kernel and plain scorers select "
+                             "differently away from a near-tie")
+
+
 def phase_predict(torch, np, device, card):
     from ips_tpu_torch.config import config_from_dict
     from ips_tpu_torch.infer import Predictor
     from ips_tpu_torch.ops import score_kernel as sk
-    from ips_tpu_torch.ops.selection import ips_select
 
     conf = config_from_dict(MNIST_CONFIG)
     pred = Predictor(conf)                 # the card, by default
@@ -360,27 +447,9 @@ def phase_predict(torch, np, device, card):
         np.testing.assert_array_equal(o["selected_idx"], idx)
 
     # the same selection with the plain scorer
-    model = pred.trainer.model
     x = torch.from_numpy(patches).to(device).to(torch.bfloat16)
     mask = torch.ones((conf.B, conf.N), dtype=torch.bool, device=device)
-    with torch.inference_mode():
-        res = ips_select(
-            model.encode,
-            lambda e, m: sk.fast_scores(e, model.score_weights(), m),
-            x, M=conf.M, I=conf.I, pos_table=pred.trainer.pos_table,
-            mask=mask)
-    plain_idx = res.mem_idx.cpu().numpy()
-    if np.array_equal(plain_idx, idx):
-        log("  plain-scorer selection: identical indices")
-    else:
-        report = near_tie_report(torch, pred, x, mask)
-        log(f"  plain-scorer selection differs in "
-            f"{int((plain_idx != idx).any(1).sum())} rows; first differing "
-            f"step: {report}")
-        if not report or report[0]["gap_at_M"] > 2 * report[0][
-                "max_score_diff"]:
-            raise AssertionError("kernel and plain scorers select "
-                                 "differently away from a near-tie")
+    check_plain_selection(torch, np, pred, x, mask, idx)
 
     steady = sorted(times[1:])
     median = steady[len(steady) // 2]
@@ -399,9 +468,9 @@ def _category(name: str) -> str:
                       ("scatter (densify, gather backward)", ("scatter",)),
                       ("optimizer (AdamW)", ("multi_tensor", "adam")),
                       ("memcpy/memset", ("memcpy", "memset")),
-                      ("convolution", ("conv", "cudnn", "xmma", "fprop",
-                                       "implicit")),
-                      ("gemm", ("gemm", "cutlass", "cublas")),
+                      ("convolution", ("conv", "cudnn", "fprop", "dgrad",
+                                       "wgrad", "implicit")),
+                      ("gemm", ("gemm", "cutlass", "cublas", "xmma")),
                       ("sort (top-M)", ("sort", "radix")),
                       ("gather/index", ("gather", "index")),
                       ("reduce (softmax, mean, pool)", ("reduce", "softmax",
@@ -785,6 +854,171 @@ def phase_driver(torch, np, device, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def n_chunks(conf, bucket):
+    """score_logits launches of one slide padded to ``bucket``: one per
+    I-row chunk beyond the first M, none on the M >= N shortcut."""
+    return max(0, math.ceil((bucket - conf.M) / conf.I))
+
+
+def phase_camelyon(torch, np, device, card):
+    """The camelyon feature-mode path through the driver at full width;
+    returns score_logits' launches in its 2-epoch run."""
+    from ips_tpu_torch import main as driver
+    from ips_tpu_torch.config import config_from_dict
+    from ips_tpu_torch.data.camelyon.dataset import (CamelyonFeatures,
+                                                     synth_slides)
+    from ips_tpu_torch.infer import Predictor
+    from ips_tpu_torch.ops import score_kernel as sk
+    from ips_tpu_torch.train.loop import train_one_epoch
+    from ips_tpu_torch.train.metrics import MetricsLogger
+    tmp = tempfile.mkdtemp(prefix="ips_tpu_torch_camelyon_")
+    try:
+        metrics = os.path.join(tmp, "metrics.jsonl")
+        conf = config_from_dict(dict(
+            CAMELYON_CONFIG, n_epoch=CAMELYON_EPOCHS, n_epoch_warmup=1,
+            metrics_path=metrics))
+        # the card has no h5py: the slides stay in memory, made by the
+        # generator make_synth_features writes out
+        t0 = time.perf_counter()
+        train_ds, test_ds = (
+            CamelyonFeatures(conf, train, slides=dict(synth_slides(
+                n, conf.n_chan_in, n_range, seed=seed)))
+            for train, (n, n_range), seed in (
+                (True, CAMELYON_TRAIN, SEED), (False, CAMELYON_TEST,
+                                              SEED + 1)))
+        train_b = [train_ds.bucket_of(i) for i in range(len(train_ds))]
+        test_b = [test_ds.bucket_of(i) for i in range(len(test_ds))]
+        # the M >= N shortcut, one chunk and two chunks beyond the first M
+        buckets = [conf.M + k * conf.I for k in range(3)]
+        log(f"  corpus: {len(train_ds)} train + {len(test_ds)} test slides "
+            f"of {conf.n_chan_in} fp32 features, "
+            f"{sum(train_ds._ns) + sum(test_ds._ns)} rows, in memory, made "
+            f"in {time.perf_counter() - t0:.2f} s; train buckets "
+            f"{dict(Counter(train_b))}, test buckets "
+            f"{dict(sorted(Counter(test_b).items()))}")
+        if set(train_b) != {buckets[1]} or set(test_b) != set(buckets):
+            raise AssertionError("the corpus misses its buckets")
+        r = conf.B // conf.B_seq
+        steps = len(train_ds) // conf.B
+        eval_want = sum(n_chunks(conf, b) for b in test_b)
+        train_want = sum(n_chunks(conf, b) for b in train_b)
+
+        # (a) two epochs through the driver, on the card by default;
+        # evaluate's launches counted apart
+        eval_launches = []
+        evaluate = driver.evaluate
+
+        def counted_evaluate(*a, **kw):
+            before = sk.logits.launches
+            evaluate(*a, **kw)
+            eval_launches.append(sk.logits.launches - before)
+        driver.evaluate = counted_evaluate
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sk.logits.launches = 0
+        t0 = time.perf_counter()
+        try:
+            trainer, _, _ = driver.run(conf, "camelyon",
+                                       datasets=(train_ds, test_ds))
+            torch.cuda.synchronize()
+        finally:
+            driver.evaluate = evaluate
+        wall = time.perf_counter() - t0
+        launches = sk.logits.launches
+        peak = torch.cuda.max_memory_allocated()
+        if trainer.device.type != "cuda":
+            raise AssertionError(f"the driver ran on {trainer.device}")
+        train_launches = launches - sum(eval_launches)
+        if (train_launches != CAMELYON_EPOCHS * train_want
+                or eval_launches != [eval_want] * CAMELYON_EPOCHS):
+            raise AssertionError(
+                f"score kernel launched {train_launches} times in training "
+                f"and {eval_launches} in eval, expected "
+                f"{CAMELYON_EPOCHS * train_want} and {eval_want} an epoch")
+        if trainer.step != CAMELYON_EPOCHS * steps:
+            raise AssertionError(f"trainer step {trainer.step}")
+        for name, p in trainer.model.named_parameters():
+            if not bool(torch.isfinite(p).all()):
+                raise AssertionError(f"non-finite parameter {name}")
+        rows = metrics_rows(metrics)
+        check_metrics_rows(np, conf, rows, range(CAMELYON_EPOCHS))
+        epoch_s = [r["train_seconds"] for r in rows if r["split"] == "train"]
+        log(f"  camelyon driver: {CAMELYON_EPOCHS} epochs of {steps} steps "
+            f"(B = {conf.B} from {r} slots of B_seq = {conf.B_seq}, K = "
+            f"{conf.steps_per_dispatch}) and {len(test_ds)} eval slides in "
+            f"{wall:.2f} s; score_logits launches: {train_launches} in "
+            f"training ({train_launches / (CAMELYON_EPOCHS * steps):g} per "
+            f"optimizer step), {eval_launches} in eval (none, one and two "
+            f"per slide of bucket {buckets}); trainer step {trainer.step}")
+        log(f"  camelyon driver: epoch wall {epoch_s[0]:.4f} s (epoch 0, "
+            f"warm-up), {epoch_s[1]:.4f} s (epoch 1): "
+            f"{epoch_s[1] / steps * 1e3:.2f} ms per optimizer step; peak "
+            f"memory {peak / 2**20:.1f} MiB (max_memory_allocated); card "
+            f"{card}")
+        for row in rows:
+            t = conf.task_list[0]
+            log(f"    {row['split']} epoch {row['epoch']}: {t.name} loss "
+                f"{row[f'{t.name}_loss']:.4f}, {t.metric} "
+                f"{row[f'{t.name}_{t.metric}']:.3f}")
+
+        # (b) one two-chunk slide selected with the kernel and with the
+        # plain scorer, from the trained weights
+        pred = Predictor(conf, trainer=trainer)
+        i = test_b.index(buckets[2])
+        item = test_ds[i]
+        x = torch.from_numpy(item["input"][None]).to(device)
+        mask = torch.from_numpy(item["mask"][None]).to(device)
+        before = sk.logits.launches
+        idx = pred.predict(item["input"][None], item["mask"][None])[
+            "selected_idx"]
+        if sk.logits.launches - before != 2:
+            raise AssertionError("a two-chunk slide did not take 2 "
+                                 "launches")
+        log(f"  slide {test_ds.slide_names[i]} ({test_ds._ns[i]} rows, "
+            f"bucket {buckets[2]}): kernel selection of {idx.shape[1]}")
+        check_plain_selection(torch, np, pred, x, mask, idx)
+        del pred, x, mask
+
+        # (c) where one epoch's time goes: one slide's host work step by
+        # step, the loader alone, then a profiled train epoch
+        from ips_tpu_torch.data.loader import _collate
+        from ips_tpu_torch.train.loop import _to_device
+        t0 = time.perf_counter()
+        item = train_ds[0]
+        t1 = time.perf_counter()
+        batch = _collate([item])
+        t2 = time.perf_counter()
+        _to_device(batch["input"], device)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        log(f"  one slide on the host ({batch['input'].nbytes / 1e6:.1f} "
+            f"MB): pad {(t1 - t0) * 1e3:.2f} ms, collate "
+            f"{(t2 - t1) * 1e3:.2f} ms, pinned copy and transfer "
+            f"{(t3 - t2) * 1e3:.2f} ms")
+        del item, batch
+        loader, _ = driver.build_loaders(conf, train_ds, test_ds)
+        t0 = time.perf_counter()
+        n_batches = sum(1 for _ in loader)
+        log(f"  loader alone (host, {conf.n_worker} threads, one batch of "
+            f"B_seq = {conf.B_seq} at a time): "
+            f"{(time.perf_counter() - t0) * 1e3:.2f} ms for {n_batches} "
+            "padded fp32 slides")
+        before = sk.logits.launches
+        busy = breakdown(torch, lambda: train_one_epoch(
+            trainer, loader, 1, MetricsLogger(conf.task_list), conf),
+            epoch_s[1], what=f"camelyon epoch of {steps} steps "
+            "(epoch 1's wall)")
+        log(f"  profiled epoch: {sk.logits.launches - before} score_logits "
+            "launches")
+        if busy is not None:
+            log(f"  camelyon step: device busy {busy / steps:.2f} ms of "
+                f"{epoch_s[1] / steps * 1e3:.2f} ms (idle share "
+                f"{1 - busy / (epoch_s[1] * 1e3):.3f}); card {card}")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_conv_probe(torch, np, device, card, pred):
     """conv_block against its plain version, the main path's own layer1
     timed at the same shape, then the layer1 probe with the kernel's
@@ -907,10 +1141,13 @@ def main() -> int:
         phase_cli(torch, np, pred, patches)
     with Phase("driver"):
         driver_launches = phase_driver(torch, np, device, card)
-    entry["launches"] = launches + train_launches + driver_launches
+    with Phase("camelyon"):
+        camelyon_launches = phase_camelyon(torch, np, device, card)
     entry["launches_by_path"] = {"predict": launches,
                                  "train": train_launches,
-                                 "driver": driver_launches}
+                                 "driver": driver_launches,
+                                 "camelyon": camelyon_launches}
+    entry["launches"] = sum(entry["launches_by_path"].values())
     with Phase("conv_probe"):
         conv_entry = phase_conv_probe(torch, np, device, card, pred)
     log(f"total {time.perf_counter() - t_start:.1f} s")

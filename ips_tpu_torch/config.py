@@ -237,11 +237,6 @@ class Config:
         Each names the ROADMAP.md queue-1 item that brings it, so that a
         config is never run with a knob silently ignored.
         """
-        if not self.is_image:
-            raise NotImplementedError(
-                "is_image=false (FeatureProjector feature mode) is not "
-                "ported yet: ROADMAP.md queue 1, item 3 (camelyon "
-                "feature-mode path)")
         if self.select_dtype == "int8":
             raise NotImplementedError(
                 "select_dtype='int8' is not ported yet: ROADMAP.md queue 1, "

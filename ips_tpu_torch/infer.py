@@ -61,7 +61,9 @@ class Predictor:
 
     def predict(self, patches: np.ndarray,
                 mask: Optional[np.ndarray] = None) -> Dict[str, np.ndarray]:
-        """patches (B, N, ...) -> {task: probs} + 'selected_idx' (B, M)."""
+        """patches (B, N, ...), image patches or feature rows, with an
+        optional (B, N) validity mask -> {task: probs} + 'selected_idx'
+        (B, M)."""
         x = torch.as_tensor(np.ascontiguousarray(patches)).to(self.device)
         B, N = x.shape[:2]
         m = (torch.as_tensor(np.asarray(mask, bool)).to(self.device)

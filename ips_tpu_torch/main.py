@@ -2,6 +2,8 @@
 
     python -m ips_tpu_torch.main --dataset mnist \\
         --config config/mnist_config.yml data_dir=<dir> B=8 n_epoch=5
+    python -m ips_tpu_torch.main --dataset camelyon \\
+        --config config/camelyon_config.yml data_dir=<dir> ...
     python -m ips_tpu_torch.main --config cfg.json --device cpu ...
 
 ``--config`` takes YAML or JSON (``.json``). Any config key can be
@@ -20,7 +22,7 @@ import argparse
 import contextlib
 import os
 import time
-from typing import Optional, Union
+from typing import Any, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -44,10 +46,14 @@ def build_datasets(conf: Config, dataset: str):
         raise NotImplementedError(
             "the traffic-sign dataset is not ported yet: ROADMAP.md queue "
             "1, item 8 (traffic data)")
-    if dataset in ("camelyon", "camelyon_e2e"):
+    if dataset == "camelyon":
+        from ips_tpu_torch.data.camelyon.dataset import CamelyonFeatures
+        return (CamelyonFeatures(conf, train=True),
+                CamelyonFeatures(conf, train=False))
+    if dataset == "camelyon_e2e":
         raise NotImplementedError(
-            f"the {dataset} dataset is not ported yet: ROADMAP.md queue 1, "
-            "item 3 (camelyon feature-mode path)")
+            "the camelyon_e2e dataset (raw slide tiles, eager: false) is "
+            "not ported yet: ROADMAP.md queue 1, item 5 (streaming)")
     raise ValueError(f"unknown dataset {dataset!r}")
 
 
@@ -86,15 +92,18 @@ def _profiler(device: torch.device):
 
 
 def run(conf: Config, dataset: str,
-        device: Optional[Union[str, torch.device]] = None):
+        device: Optional[Union[str, torch.device]] = None,
+        datasets: Optional[Tuple[Any, Any]] = None):
     """Train ``conf.n_epoch`` epochs with an eval after each; returns
-    (trainer, train logger, test logger)."""
+    (trainer, train logger, test logger). ``datasets`` (train, test)
+    replaces the ones ``dataset`` names, e.g. camelyon slides held in
+    memory (``CamelyonFeatures(conf, slides=...)``)."""
     check_ported_schedule(conf)
     np.random.seed(conf.seed)
     print("Used config:")
     print(conf.pretty(), flush=True)
 
-    train_data, test_data = build_datasets(conf, dataset)
+    train_data, test_data = datasets or build_datasets(conf, dataset)
     train_loader, test_loader = build_loaders(conf, train_data, test_data)
     trainer = build_trainer(conf, device)
 

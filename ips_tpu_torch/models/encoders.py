@@ -1,5 +1,6 @@
-"""Patch encoder: truncated ResNet (counterpart of
-ips_tpu/models/encoders.py).
+"""Patch encoders (counterpart of ips_tpu/models/encoders.py): a
+truncated ResNet over image patches and a projector over precomputed
+features.
 
 torchvision-style ResNet-18/50 cut after layer2 (``n_res_blocks=2``) or
 layer4 (``n_res_blocks=4``), with the 7x7 stem rebuilt for ``n_chan_in``
@@ -12,7 +13,9 @@ between convs, the residual sums and the pooled output are fp32. ``train``
 and ``row_weights`` reach every norm: batch statistics weighted by row in
 training, running statistics otherwise.
 
-``FeatureProjector`` (feature mode) is not ported yet.
+``FeatureProjector`` (feature mode, ``is_image: false``) maps precomputed
+feature rows to D: LayerNorm without affine, Linear, ``MaskedBatchNorm``,
+ReLU, fp32 out.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ips_tpu_torch.models.norm import MaskedBatchNorm
+from ips_tpu_torch.models.transformer import dense
 
 _STAGE_BLOCKS = {"resnet18": (2, 2, 2, 2), "resnet50": (3, 4, 6, 3)}
 
@@ -159,3 +163,48 @@ class ConvPatchEncoder(nn.Module):
         for name in self.block_names:
             y = getattr(self, name)(y, train, row_weights)
         return y.mean(dim=(2, 3), dtype=torch.float32)
+
+
+class FeatureProjector(nn.Module):
+    """Projector for precomputed features: LN(no affine) -> Linear -> BN
+    -> ReLU, (n, F) -> (n, D) fp32.
+
+    The LayerNorm statistics are flax's, in fp32: the fast variance
+    max(0, E[x^2] - E[x]^2), eps 1e-5. Exact form: the normalized rows
+    (in x's dtype) go through the Linear in the compute dtype, rows,
+    weight and bias rounded to it and the output in it, as flax's
+    ``Dense(dtype=)``. ``ln_fold``: the row affine commutes through the
+    Linear,
+
+        ((x - m) * r) @ W + b  ==  r * (x @ W) - (r * m) * colsum(W) + b,
+
+    so the GEMM reads the raw rows in the compute dtype with fp32
+    accumulation (the products of two bf16 values are exact in fp32, so
+    the fp32 GEMM of the rounded operands is that product) and the
+    affine runs in fp32 before one cast to the compute dtype. Both forms
+    share the parameters: ``fc`` (Linear) and ``bn``.
+    """
+
+    def __init__(self, n_chan_in: int, D: int,
+                 dtype: torch.dtype = torch.float32, ln_fold: bool = False):
+        super().__init__()
+        self.dtype = dtype
+        self.ln_fold = ln_fold
+        self.fc = nn.Linear(n_chan_in, D)
+        self.bn = MaskedBatchNorm(D)
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                row_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        mu2 = xf.square().mean(dim=-1, keepdim=True)
+        r = torch.rsqrt(torch.clamp(mu2 - mu.square(), min=0.0) + 1e-5)
+        if not self.ln_fold:
+            y = dense(self.fc, ((xf - mu) * r).to(x.dtype), self.dtype)
+        else:
+            kb = self.fc.weight.to(self.dtype)              # (D, F)
+            z = x.to(self.dtype).float() @ kb.float().t()
+            colsum = kb.float().sum(dim=1)
+            y = (z * r - (r * mu) * colsum + self.fc.bias).to(self.dtype)
+        y = self.bn(y, use_running_average=not train, weights=row_weights)
+        return F.relu(y).float()

@@ -1,7 +1,8 @@
 """IPSModel — encoder + cross-attention transformer + per-task heads
 (counterpart of ips_tpu/models/ips_net.py).
 
-  * ``encode``    — (B, n, ph, pw, C) patches -> (B, n, D) fp32 embeddings
+  * ``encode``    — (B, n, ph, pw, C) patches or (B, n, F) feature rows
+                    -> (B, n, D) fp32 embeddings
   * ``scores``    — per-candidate saliency; 'fast' and 'pallas' run the
                     query-folded scorer, whose logits GEMM is the CUDA
                     kernel on the card (ops/score_kernel.py); 'attn' runs
@@ -26,7 +27,7 @@ from torch import nn
 
 from ips_tpu_torch.config import Config
 from ips_tpu_torch.models.encoders import (Conv, ConvPatchEncoder,
-                                           encoder_out_dim)
+                                           FeatureProjector, encoder_out_dim)
 from ips_tpu_torch.models.transformer import (CrossAttnTransformer,
                                               MultiHeadCrossAttention)
 from ips_tpu_torch.ops import score_kernel
@@ -40,14 +41,18 @@ class IPSModel(nn.Module):
         super().__init__()
         self.conf = conf
         dtype = DTYPES[conf.compute_dtype]
-        d_enc = encoder_out_dim(conf.enc_type, conf.n_res_blocks)
-        if d_enc != conf.D:
-            raise ValueError(
-                f"encoder output dim {d_enc} != D={conf.D}; the reference "
-                "relies on these matching (ips_net.py:209-210)")
-        self.encoder = ConvPatchEncoder(conf.enc_type, conf.n_chan_in,
-                                        conf.n_res_blocks, conf.s2d_stem,
-                                        dtype)
+        if conf.is_image:
+            d_enc = encoder_out_dim(conf.enc_type, conf.n_res_blocks)
+            if d_enc != conf.D:
+                raise ValueError(
+                    f"encoder output dim {d_enc} != D={conf.D}; the "
+                    "reference relies on these matching (ips_net.py:209-210)")
+            self.encoder = ConvPatchEncoder(conf.enc_type, conf.n_chan_in,
+                                            conf.n_res_blocks, conf.s2d_stem,
+                                            dtype)
+        else:
+            self.encoder = FeatureProjector(conf.n_chan_in, conf.D, dtype,
+                                            conf.ln_fold)
         self.transf = CrossAttnTransformer(
             conf.n_token, conf.H, conf.D, conf.D_k, conf.D_v, conf.D_inner,
             conf.attn_dropout, conf.dropout, dtype)
@@ -62,7 +67,8 @@ class IPSModel(nn.Module):
 
     def encode(self, x: torch.Tensor, train: bool = False,
                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Encode patches: (B, n, ph, pw, C) -> (B, n, D) fp32.
+        """Encode patches (B, n, ph, pw, C) or features (B, n, F) ->
+        (B, n, D) fp32.
 
         uint8 patches are scaled to [0, 1] per chunk, so the resident
         patch tensor can stay uint8. ``weights`` (B,) keeps zero-weight

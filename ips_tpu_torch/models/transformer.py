@@ -58,9 +58,11 @@ def dropout(x: torch.Tensor, p: float, train: bool,
 
 def dense(layer: nn.Linear, x: torch.Tensor,
           dtype: torch.dtype) -> torch.Tensor:
-    """flax ``nn.Dense(dtype=)``: input, weight and bias cast to dtype."""
-    bias = layer.bias.to(dtype) if layer.bias is not None else None
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    """flax ``nn.Dense(dtype=)``: input, weight and bias cast to dtype;
+    the product is rounded to dtype before the bias is added in dtype, as
+    flax adds it (``F.linear`` with the bias would round once)."""
+    y = F.linear(x.to(dtype), layer.weight.to(dtype))
+    return y + layer.bias.to(dtype) if layer.bias is not None else y
 
 
 class MultiHeadCrossAttention(nn.Module):

@@ -27,9 +27,11 @@ import torch
 
 # (name, B, L, D, TH, dtype): the MNIST selection shape (the main path
 # scores (16, M+I=200, 128) against T*H = 4*8 = 32) in both types, and the
-# camelyon feature-mode shape (L = M+I = 10000, T*H = 8)
+# camelyon feature-mode shape (one slide, L = M+I = 10000, T*H = 8), in
+# fp32 as the camelyon path runs it (the projector's embeddings) and bf16
 LOGITS_CASES = (("mnist", 16, 200, 128, 32, "float32"),
                 ("mnist", 16, 200, 128, 32, "bfloat16"),
+                ("camelyon", 1, 10000, 512, 8, "float32"),
                 ("camelyon", 1, 10000, 512, 8, "bfloat16"))
 # (name, n, s, c, paired): layer1's chunk of 1600 patches of 13x13x64, the
 # TPU kernel's pair-packed layout (block-diagonal weights), and

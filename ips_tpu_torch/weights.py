@@ -14,6 +14,8 @@ these leaf and layout rules:
   ``batch_stats`` ``mean`` / ``var`` <-> ``running_mean`` / ``running_var``
   the query tokens ``q`` (1, T, D) <-> ``q``
 
+The feature projector's tree (``encoder/fc`` and ``encoder/bn``) maps
+by the same rules: its LayerNorm has no parameters on either side.
 A key with no counterpart, or a counterpart with no key, raises.
 
 The training state travels too (:func:`load_jax_train_state`): optax's

@@ -28,8 +28,9 @@ that rounds where the reference rounds differs only by the occasional
 flip, while the same stage left in fp32 misses every rounding, about
 2^-8/sqrt(12) relative per rounded tensor. The stated bounds sit between
 the two (measured on the inputs below: encoder 4.8e-5 to 1.4e-4 in bf16
-against 1.8e-3 in fp32; aggregation transformer 8.9e-4 to 9.1e-4 against
-3.5e-3), and each test also asserts that the fp32 stage
+against 1.8e-3 in fp32; aggregation transformer 5.6e-8 against 3.5e-3,
+since each projection rounds its product to bf16 before adding the bias,
+as flax's Dense does), and each test also asserts that the fp32 stage
 exceeds its bound, so that the check is shown to catch a missing cast.
 """
 

@@ -27,7 +27,16 @@ def test_smoke_literal_equals_mnist_yaml():
     assert config_from_dict(_smoke_module().MNIST_CONFIG) == load_config(path)
 
 
-@pytest.mark.parametrize("name", ["mnist_config.yml", "traffic_config.yml"])
+def test_smoke_literal_equals_camelyon_yaml():
+    path = os.path.join(REPO, "config", "camelyon_config.yml")
+    with open(path) as f:
+        assert _smoke_module().CAMELYON_CONFIG == yaml.safe_load(f)
+    assert config_from_dict(_smoke_module().CAMELYON_CONFIG) == \
+        load_config(path)
+
+
+@pytest.mark.parametrize("name", ["mnist_config.yml", "traffic_config.yml",
+                                  "camelyon_config.yml"])
 def test_same_fields_as_reference(name):
     path = os.path.join(REPO, "config", name)
     ours, ref = load_config(path), j_load(path)
@@ -48,7 +57,7 @@ def test_overrides_and_json(tmp_path):
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"is_image": False}, "item 3"), ({"select_dtype": "int8"}, "item 6"),
+    ({"select_dtype": "int8"}, "item 6"),
     ({"preencode_select": True}, "item 4"), ({"mesh_data": 2}, "item 6"),
     ({"mesh_patch": 2}, "item 6")])
 def test_unported_values_raise(over, match):
@@ -57,9 +66,22 @@ def test_unported_values_raise(over, match):
         config_from_dict(dict(base, **over))
 
 
-def test_camelyon_config_names_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_config(os.path.join(REPO, "config", "camelyon_config.yml"))
+def test_feature_mode_is_accepted():
+    """is_image=false builds the projector model; int8 selection stays
+    the ValueError it is in the JAX package."""
+    base = dict(_smoke_module().MNIST_CONFIG)
+    conf = config_from_dict(dict(base, is_image=False, n_chan_in=64,
+                                 sparse_input=False, use_pos=False))
+    assert not conf.is_image
+    with pytest.raises(ValueError, match="feature"):
+        config_from_dict(dict(base, is_image=False, select_dtype="int8"))
+
+
+def test_camelyon_config_loads():
+    conf = load_config(os.path.join(REPO, "config", "camelyon_config.yml"))
+    assert (conf.is_image, conf.n_chan_in, conf.D, conf.M, conf.B,
+            conf.B_seq, conf.ln_fold) == (False, 2048, 512, 5000, 16, 1,
+                                          True)
 
 
 def test_validation_is_kept():

@@ -33,6 +33,7 @@ def _inputs(device, B, L, D, TH, dtype, seed=0):
 @pytest.mark.parametrize("B,L,D,TH,dtype", [
     (16, 200, 128, 32, torch.float32), (16, 200, 128, 32, torch.bfloat16),
     (4, 1037, 128, 32, torch.float32), (1, 10000, 512, 8, torch.bfloat16),
+    (1, 10000, 512, 8, torch.float32),
     (3, 33, 70, 64, torch.float32), (2, 1, 5, 1, torch.float32)])
 def test_kernel_matches_plain(cuda, B, L, D, TH, dtype):
     x, w = _inputs(cuda, B, L, D, TH, dtype)
@@ -318,4 +319,50 @@ def test_fused_sparse_step_selects_as_plain_scorer(no_tf32):
                                       torch.ones(4, device=cuda), None, 1e-3)
     assert sk.logits.launches - before == 8      # ceil((36 - 4) / 4)
     assert torch.equal(kept[0], plain)
+    assert bool(torch.isfinite(loss))
+
+
+def test_feature_assembled_step_selects_as_plain_scorer(no_tf32):
+    """A small fp32 camelyon-style assembled step on the card: four
+    bucket-padded slides, each selected with the kernel (one launch per
+    chunk) into the indices the plain scorer keeps, then a finite step."""
+    from ips_tpu_torch.config import config_from_dict
+    from ips_tpu_torch.ops.selection import ips_select
+    from ips_tpu_torch.train.steps import IPSTrainer
+    cuda = no_tf32
+    conf = config_from_dict(dict(
+        B=4, B_seq=1, n_class=1, is_image=False, n_chan_in=32, n_token=1,
+        shuffle=False, M=8, I=8, use_pos=False, H=2, D=16, D_k=8, D_v=8,
+        D_inner=32, attn_dropout=0.0, dropout=0.0, ln_fold=True,
+        compute_dtype="float32",
+        tasks={"task0": {"id": 0, "name": "metastases", "act_fn": "sigmoid",
+                         "metric": "auc"}}))
+    tr = IPSTrainer(conf)
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((4, 1, 24, 32), np.float32))
+    mask = torch.arange(24)[None, None] < torch.tensor(
+        [24, 19, 17, 9])[:, None, None]
+    x, mask = (x * mask[..., None]).to(cuda), mask.to(cuda)
+    model = tr.model
+    with torch.no_grad():
+        plain = [ips_select(
+            model.encode,
+            lambda e, m: sk.fast_scores(e, model.score_weights(), m),
+            x[j], M=conf.M, I=conf.I, mask=mask[j]).mem_idx
+            for j in range(4)]
+    kept = []
+    select = tr._select_impl
+
+    def record(*a, **kw):
+        out = select(*a, **kw)
+        kept.append(out[2])
+        return out
+    tr._select_impl = record
+    labels = {"metastases": torch.tensor([0, 1, 0, 1], device=cuda)}
+    before = sk.logits.launches
+    loss, _, _ = tr.fused_assembled_step(
+        x, mask, labels, torch.ones(4, device=cuda), None, None, 1e-3)
+    assert sk.logits.launches - before == 4 * 2  # ceil((24 - 8) / 8) a slot
+    for got, want in zip(kept, plain):
+        assert torch.equal(got, want)
     assert bool(torch.isfinite(loss))

@@ -40,6 +40,7 @@ def test_sources_found():
             "ips_tpu_torch/main.py",
             "ips_tpu_torch/native.py",
             "ips_tpu_torch/data/mnist.py",
+            "ips_tpu_torch/data/camelyon/dataset.py",
             "ips_tpu_torch/train/loop.py"} <= rel
 
 

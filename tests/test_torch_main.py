@@ -122,11 +122,31 @@ def test_efficiency_tracker_reports_and_stops(config_path, capsys):
 
 
 @pytest.mark.parametrize("dataset,item", [
-    ("traffic", "item 8"), ("camelyon", "item 3"), ("camelyon_e2e", "item 3")])
+    ("traffic", "item 8"), ("camelyon_e2e", "item 5")])
 def test_unported_datasets_raise(config_path, dataset, item):
     with pytest.raises(NotImplementedError, match=item):
         main(["--dataset", dataset, "--config", config_path, "--device",
               "cpu"])
+
+
+def test_camelyon_dataset_builds(tmp_path):
+    """``--dataset camelyon`` builds the feature datasets from the two
+    HDF5 files the config names."""
+    from ips_tpu_torch.data.camelyon.dataset import (CamelyonFeatures,
+                                                     make_synth_features)
+    from ips_tpu_torch.main import build_datasets
+    make_synth_features(str(tmp_path / "a.h5"), n_slides=4, feat_dim=8,
+                        n_range=(3, 12), seed=0)
+    make_synth_features(str(tmp_path / "b.h5"), n_slides=2, feat_dim=8,
+                        n_range=(3, 12), seed=1)
+    conf = config_from_dict(dict(
+        conf_dict(str(tmp_path), sparse_input=False, use_pos=False),
+        is_image=False, n_chan_in=8, train_fname="a.h5",
+        test_fname="b.h5"))
+    train, test = build_datasets(conf, "camelyon")
+    assert isinstance(train, CamelyonFeatures) and (len(train),
+                                                    len(test)) == (4, 2)
+    assert train[0]["input"].shape[1] == 8
 
 
 def test_streaming_raises_before_loading(config_path):
