@@ -25,7 +25,9 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                20 ``fused_step``s on one batch; one small fp32 step scored
                by the kernel held against the same step scored by the
                plain version on the card and on the CPU; a profiler
-               breakdown of one full-width step;
+               breakdown of one full-width step; one batch's pre-encoded
+               selection (``preencode_chunked``) against the per-chunk
+               one, and what ``preencode_select='auto'`` resolves to;
   6. cli     — ``ips_tpu_torch.infer.main`` on two .npy inputs and a
                ``torch.save`` checkpoint in a temporary directory;
   7. driver  — the training driver, ``ips_tpu_torch.main.main``, at the
@@ -47,12 +49,29 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                of 2000..15000 rows, buckets 5000 to 15000): 2 epochs, 16
                fp32 ``score_logits`` launches per optimizer step and one
                per 5000-row chunk beyond the first M in eval, metrics
-               lines, one slide's selection against the plain scorer, ms
-               per step, peak memory and a profiler breakdown of one epoch
-               with the device's idle share. The card has no h5py, so
+               lines, one slide's selection against the plain scorer and
+               its pre-encoded selection against the per-chunk one, what
+               ``'auto'`` resolves to on the assembled step (pre-encode),
+               epochs with each schedule in turns, ms per step, peak
+               memory and a profiler breakdown of one epoch with the
+               device's idle share. The card has no h5py, so
                the slides stay in memory (``CamelyonFeatures(slides=)``)
                and reach ``ips_tpu_torch.main.run``;
-  9. conv_probe — the fused BasicBlock kernel against its plain version
+  9. camelyon_e2e — the camelyon end-to-end path through the driver at
+               the full width of config/camelyon_e2e_config.yml (224x224x3
+               uint8 tiles, ResNet-50 cut after layer2, D = 512, M = I =
+               256, B = 8 from B_seq = 1, bf16, ``eager: false``: tiles
+               in host memory streamed to the card in stages of G = 4
+               chunks) with ``grad_encode_chunk = 32`` on synthetic slides
+               made from the seed (8 train slides of 1281..2304 tiles, 4
+               test slides in buckets 256 to 2304): 2 epochs, 8
+               ``score_logits`` launches per train slide (64 per optimizer
+               step) and 0/2/4/8 per test slide, one slide's selection
+               against the plain scorer's, G = 4 against G = 1 bitwise,
+               selection's peak memory on a 1280- and a 2304-tile slide
+               within 64 MiB, ms per step, peak memory and the device's
+               idle share over a profiled epoch;
+ 10. conv_probe — the fused BasicBlock kernel against its plain version
                at the layer1 shapes (1600, 13, 13, 64), paired
                (800, 13, 13, 128), a ragged one and layer2_block1's
                (1600, 7, 7, 128), with device times of kernel, plain
@@ -125,6 +144,25 @@ CAMELYON_CONFIG = {
     "mesh_patch": 1, "ln_fold": True, "steps_per_dispatch": 4,
 }
 
+# config/camelyon_e2e_config.yml as a literal, held equal to the YAML file
+# by the same test.
+CAMELYON_E2E_CONFIG = {
+    "n_epoch": 50, "B": 8, "B_seq": 1, "n_epoch_warmup": 5, "lr": 0.0003,
+    "wd": 0.1, "n_class": 1, "data_dir": "data/camelyon/cam16",
+    "n_worker": 8, "pin_memory": False, "eager": False,
+    "stream_chunk_group": 4, "eps": 1e-06, "seed": 0,
+    "track_efficiency": False, "track_epoch": 0, "is_image": True,
+    "enc_type": "resnet50", "pretrained": False, "n_chan_in": 3,
+    "n_res_blocks": 2, "shuffle": True, "shuffle_style": "batch",
+    "n_token": 1, "M": 256, "I": 256, "patch_size": [224, 224],
+    "patch_stride": [224, 224], "use_pos": False, "H": 8, "D": 512,
+    "D_k": 64, "D_v": 64, "D_inner": 2048, "attn_dropout": 0.1,
+    "dropout": 0.1,
+    "tasks": {"task0": {"id": 0, "name": "metastases", "act_fn": "sigmoid",
+                        "metric": "auc"}},
+    "compute_dtype": "bfloat16", "mesh_data": 1, "mesh_patch": 1,
+}
+
 SEED = 0
 N_REQUESTS = 4
 N_TIMED_DISPATCHES = 3      # timed fused_multi_step calls after a warm-up
@@ -138,6 +176,19 @@ DRIVER_TRAIN_IMAGES, DRIVER_TEST_IMAGES, DRIVER_EPOCHS = 128, 32, 2
 # reference's N = 10k bucket, the test set crosses buckets 5000..15000
 CAMELYON_TRAIN, CAMELYON_TEST = (64, (5001, 10001)), (16, (2000, 15001))
 CAMELYON_EPOCHS = 2
+# phase camelyon_e2e: 8 train slides of 1281..2304 tiles (bucket 2304: 8
+# chunks after the first M, two groups of G = 4), one optimizer step of
+# B = 8 an epoch; 4 test slides in buckets 256, 768, 1280 and 2304 (the
+# M >= N shortcut, two single-chunk stages, one group, two groups)
+E2E_TRAIN_SLIDES, E2E_TRAIN_TILES = 8, (1281, 2305)
+E2E_TEST_TILES = (200, 700, 1200, 2000)
+E2E_EPOCHS = 2
+# the train step re-encodes B * M = 2048 tiles with gradients; in slices of
+# B * 32 (the JAX package's own runs at this tile shape used 32)
+E2E_GRAD_ENCODE_CHUNK = 32
+# streaming selection's peak memory may not grow with N: a 2304-tile and a
+# 1280-tile slide peak within this of each other
+E2E_PEAK_TOL = 64 * 2**20
 
 # Kernel vs plain tolerances. Both accumulate the same fp32 products (bf16
 # inputs are widened exactly), in another order: logits of magnitude ~1
@@ -333,64 +384,155 @@ def make_patches(np, conf, seed=SEED + 1):
     return patches
 
 
-def near_tie_report(torch, pred, patches_dev, mask):
-    """Replay selection on the kernel's trajectory, scoring each step with
-    both scorers; at the first step whose kept sets differ, return the
-    gap at the M-th place and the two scorers' largest difference."""
-    from ips_tpu_torch.ops import score_kernel as sk
+def _plain_select(torch, model, conf, pos_table, x, mask, score, seed,
+                  preencode=False):
+    """Eager selection of ``x`` scored by ``score``, in the schedule the
+    path runs (``preencode``); with a ``seed``, the config's shuffle from
+    a fresh generator of that seed on x's device."""
     from ips_tpu_torch.ops.selection import ips_select
-    model, conf = pred.trainer.model, pred.conf
-    report = []
+    gen = (None if seed is None
+           else torch.Generator(device=x.device).manual_seed(seed))
+    with torch.inference_mode():
+        return ips_select(model.encode, score, x, M=conf.M, I=conf.I,
+                          pos_table=pos_table, mask=mask, generator=gen,
+                          shuffle=seed is not None and conf.shuffle,
+                          shuffle_style=conf.shuffle_style,
+                          preencode=preencode,
+                          preencode_chunked=conf.is_image)
 
-    def score(emb, valid):
-        w = model.score_weights()
-        k = sk.scores(emb, w, valid)
-        p = sk.fast_scores(emb, w, valid)
-        if not report:
-            ks = torch.sort(k, dim=1, descending=True,
-                            stable=True)[1][:, :conf.M]
-            ps = torch.sort(p, dim=1, descending=True, stable=True)
-            diff = (ks.sort(1)[0] != ps[1][:, :conf.M].sort(1)[0]).any(1)
+
+def _table(torch, model, conf, x):
+    """The pre-encoded (B, N, D) embeddings of x, built as the path builds
+    them: for a conv encoder I patches at a time, zero-padded to a
+    multiple of I; in one call else."""
+    B, N, I = x.shape[0], x.shape[1], conf.I
+    if not conf.is_image or N <= I:
+        return model.encode(x)
+    xp = torch.cat([x, x.new_zeros((B, -N % I) + x.shape[2:])], dim=1)
+    return torch.cat([model.encode(xp[:, s:s + I])
+                      for s in range(0, xp.shape[1], I)], dim=1)[:, :N]
+
+
+def tie_report(torch, model, conf, pos_table, x, mask, seed, embed, other):
+    """Replay the selection of ``x``: each step's candidates embedded by
+    ``embed(idx)`` and scored by the model's scorer (the kernel), and
+    scored again by ``other(idx, emb, valid)``. At the first step whose
+    kept sets differ, return the gap at the M-th place of the kernel's
+    scores and the two scorings' largest difference; None if no step
+    differs."""
+    from ips_tpu_torch.constants import NEG_INF
+    from ips_tpu_torch.ops.selection import select_top_m
+    from ips_tpu_torch.ops.shuffle import make_permutation
+    M, I = conf.M, conf.I
+    B, N = x.shape[:2]
+    gen = (None if seed is None
+           else torch.Generator(device=x.device).manual_seed(seed))
+    with torch.inference_mode():
+        perm = make_permutation(gen, B, N, mask,
+                                seed is not None and conf.shuffle,
+                                conf.shuffle_style, x.device)
+        n_pad = M + -(-(N - M) // I) * I - N
+        perm = torch.cat([perm, perm.new_zeros((B, n_pad))], dim=1)
+        valid = (torch.arange(N + n_pad, device=x.device)[None]
+                 < mask.sum(dim=1, keepdim=True))
+        mem_idx, mem_valid = perm[:, :M], valid[:, :M]
+        mem_emb = embed(mem_idx)
+        for s in range(M, N + n_pad, I):
+            idx = torch.cat([mem_idx, perm[:, s:s + I]], dim=1)
+            ok = torch.cat([mem_valid, valid[:, s:s + I]], dim=1)
+            emb = torch.cat([mem_emb, embed(perm[:, s:s + I])], dim=1)
+            e = emb if pos_table is None else emb + pos_table[idx]
+            k = torch.where(ok, model.scores(e, ok), NEG_INF)
+            o = torch.where(ok, other(idx, e, ok), NEG_INF)
+            ks = torch.sort(k, dim=1, descending=True, stable=True)
+            os_ = torch.sort(o, dim=1, descending=True, stable=True)[1]
+            diff = (ks[1][:, :M].sort(1)[0] != os_[:, :M].sort(1)[0]).any(1)
             if diff.any():
                 r = int(diff.nonzero()[0])
-                vals = ps[0][r]
-                report.append({
-                    "row": r,
-                    "gap_at_M": float(vals[conf.M - 1] - vals[conf.M]),
-                    "max_score_diff": float((k[r] - p[r]).abs().max())})
-        return k
-
-    with torch.inference_mode():
-        ips_select(model.encode, score, patches_dev, M=conf.M, I=conf.I,
-                   pos_table=pred.trainer.pos_table, mask=mask)
-    return report
+                return {"row": r, "step": (s - M) // I,
+                        "gap_at_M": float(ks[0][r, M - 1] - ks[0][r, M]),
+                        "max_score_diff": float((k[r] - o[r]).abs().max())}
+            mem_emb, mem_idx, mem_valid = select_top_m(
+                emb, e, idx, ok, M, model.scores)
+    return None
 
 
-def check_plain_selection(torch, np, pred, x, mask, idx):
-    """Selection scored by the plain version on the card gives the
-    kernel's indices ``idx``, or differs first at a near-tie: a gap at the
-    M-th place within twice the two scorers' largest difference."""
+def _check_near_tie(report, what):
+    """Two selections may part only at a near-tie: a gap at the M-th
+    place within twice the largest difference of the two scorings."""
+    log(f"  {what} differs; first differing step: {report}")
+    if report is None or report["gap_at_M"] > 2 * report["max_score_diff"]:
+        raise AssertionError(f"{what} differs away from a near-tie")
+
+
+def check_plain_selection(torch, np, model, conf, pos_table, x, mask, idx,
+                          seed=None, preencode=False):
+    """Selection scored by the plain version on the card, in the same
+    schedule, gives the kernel's indices ``idx``, or parts from them only
+    at a near-tie. With a ``seed``, both shuffle from generators of that
+    seed."""
     from ips_tpu_torch.ops import score_kernel as sk
-    from ips_tpu_torch.ops.selection import ips_select
-    model, conf = pred.trainer.model, pred.conf
-    with torch.inference_mode():
-        res = ips_select(
-            model.encode,
-            lambda e, m: sk.fast_scores(e, model.score_weights(), m),
-            x, M=conf.M, I=conf.I, pos_table=pred.trainer.pos_table,
-            mask=mask)
+    res = _plain_select(
+        torch, model, conf, pos_table, x, mask,
+        lambda e, m: sk.fast_scores(e, model.score_weights(), m), seed,
+        preencode)
     plain_idx = res.mem_idx.cpu().numpy()
     if np.array_equal(plain_idx, idx):
         log("  plain-scorer selection: identical indices")
         return
-    report = near_tie_report(torch, pred, x, mask)
-    log(f"  plain-scorer selection differs in "
-        f"{int((plain_idx != idx).any(1).sum())} rows; first differing "
-        f"step: {report}")
-    if not report or report[0]["gap_at_M"] > 2 * report[0][
-            "max_score_diff"]:
-        raise AssertionError("kernel and plain scorers select "
-                             "differently away from a near-tie")
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    with torch.inference_mode():
+        table = _table(torch, model, conf, x) if preencode else None
+    embed = ((lambda i: table[rows, i]) if preencode
+             else (lambda i: model.encode(x[rows, i])))
+    report = tie_report(
+        torch, model, conf, pos_table, x, mask, seed, embed,
+        lambda i, e, v: sk.fast_scores(e, model.score_weights(), v))
+    _check_near_tie(report, f"plain-scorer selection (in "
+                    f"{int((plain_idx != idx).any(1).sum())} rows)")
+
+
+def check_preencode(torch, trainer, x, mask, what):
+    """The pre-encoded selection of ``x`` keeps the per-chunk selection's
+    indices (shuffled from generators of one seed), or parts from them
+    only at a near-tie; logs what 'auto' resolves to for ``x`` alone."""
+    model, conf = trainer.model, trainer.conf
+    outs = {}
+    for pe in (False, True):
+        with torch.no_grad():
+            outs[pe] = trainer._select_impl(
+                x, mask, trainer.new_generator(SEED), return_emb=True,
+                preencode=pe)
+    # the kept sets, and the buffers' embeddings of the same patches
+    kept = {pe: out[2].sort(dim=1) for pe, out in outs.items()}
+    same = torch.equal(kept[True].values, kept[False].values)
+    emb = {pe: torch.take_along_dim(outs[pe][4], kept[pe].indices[..., None],
+                                    dim=1) for pe in outs}
+    auto = trainer._resolve_preencode(x.shape, x.dtype)
+    order = ("the same" if torch.equal(outs[True][2], outs[False][2])
+             else "another")
+    log(f"  preencode=True on {what} {tuple(x.shape)} {x.dtype} "
+        f"({x.numel() * x.element_size() / 2**20:.1f} MiB): "
+        + (f"the same kept set as per-chunk selection, in {order} order; "
+           f"their embeddings max |diff| "
+           f"{(emb[True] - emb[False]).abs().max().item():.3e}"
+           if same else "another kept set than per-chunk selection")
+        + f"; 'auto' on this tensor alone resolves to {auto}")
+    if same:
+        return
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    with torch.inference_mode():
+        xin = x.to(torch.bfloat16) if (
+            conf.input_dtype == "bfloat16" and x.dtype != torch.uint8) else x
+        table = _table(torch, model, conf, xin)
+    pos = trainer.pos_table
+
+    def table_scores(i, e, v):
+        t = table[rows, i]
+        return model.scores(t if pos is None else t + pos[i], v)
+    report = tie_report(torch, model, conf, pos, xin, mask, SEED,
+                        lambda i: model.encode(xin[rows, i]), table_scores)
+    _check_near_tie(report, f"pre-encoded selection of {what}")
 
 
 def phase_predict(torch, np, device, card):
@@ -449,7 +591,8 @@ def phase_predict(torch, np, device, card):
     # the same selection with the plain scorer
     x = torch.from_numpy(patches).to(device).to(torch.bfloat16)
     mask = torch.ones((conf.B, conf.N), dtype=torch.bool, device=device)
-    check_plain_selection(torch, np, pred, x, mask, idx)
+    check_plain_selection(torch, np, pred.trainer.model, conf,
+                          pred.trainer.pos_table, x, mask, idx)
 
     steady = sorted(times[1:])
     median = steady[len(steady) // 2]
@@ -653,6 +796,9 @@ def phase_train(torch, np, device, card):
     log(f"  selection alone: device busy "
         f"{sum(us for us, _ in sel.values()) / 1e3:.2f} ms, "
         f"{sum(n for _, n in sel.values())} device ops")
+
+    # (e) the chunked pre-encode (a conv encoder) on one batch
+    check_preencode(torch, tr, one[0], one[1], "an MNIST batch")
     return launches
 
 
@@ -860,6 +1006,40 @@ def n_chunks(conf, bucket):
     return max(0, math.ceil((bucket - conf.M) / conf.I))
 
 
+def run_driver(torch, conf, dataset, datasets):
+    """``main.run`` on in-memory datasets, on the card by default, with
+    the ``score_logits`` launches of each ``evaluate`` counted apart;
+    returns (trainer, wall s, launches, [launches of each eval], peak
+    bytes)."""
+    from ips_tpu_torch import main as driver
+    from ips_tpu_torch.ops import score_kernel as sk
+    eval_launches = []
+    evaluate = driver.evaluate
+
+    def counted_evaluate(*a, **kw):
+        before = sk.logits.launches
+        evaluate(*a, **kw)
+        eval_launches.append(sk.logits.launches - before)
+    driver.evaluate = counted_evaluate
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.logits.launches = 0
+    t0 = time.perf_counter()
+    try:
+        trainer, _, _ = driver.run(conf, dataset, datasets=datasets)
+        torch.cuda.synchronize()
+    finally:
+        driver.evaluate = evaluate
+    wall = time.perf_counter() - t0
+    if trainer.device.type != "cuda":
+        raise AssertionError(f"the driver ran on {trainer.device}")
+    for name, p in trainer.model.named_parameters():
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"non-finite parameter {name}")
+    return (trainer, wall, sk.logits.launches, eval_launches,
+            torch.cuda.max_memory_allocated())
+
+
 def phase_camelyon(torch, np, device, card):
     """The camelyon feature-mode path through the driver at full width;
     returns score_logits' launches in its 2-epoch run."""
@@ -905,29 +1085,8 @@ def phase_camelyon(torch, np, device, card):
 
         # (a) two epochs through the driver, on the card by default;
         # evaluate's launches counted apart
-        eval_launches = []
-        evaluate = driver.evaluate
-
-        def counted_evaluate(*a, **kw):
-            before = sk.logits.launches
-            evaluate(*a, **kw)
-            eval_launches.append(sk.logits.launches - before)
-        driver.evaluate = counted_evaluate
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        sk.logits.launches = 0
-        t0 = time.perf_counter()
-        try:
-            trainer, _, _ = driver.run(conf, "camelyon",
-                                       datasets=(train_ds, test_ds))
-            torch.cuda.synchronize()
-        finally:
-            driver.evaluate = evaluate
-        wall = time.perf_counter() - t0
-        launches = sk.logits.launches
-        peak = torch.cuda.max_memory_allocated()
-        if trainer.device.type != "cuda":
-            raise AssertionError(f"the driver ran on {trainer.device}")
+        trainer, wall, launches, eval_launches, peak = run_driver(
+            torch, conf, "camelyon", (train_ds, test_ds))
         train_launches = launches - sum(eval_launches)
         if (train_launches != CAMELYON_EPOCHS * train_want
                 or eval_launches != [eval_want] * CAMELYON_EPOCHS):
@@ -937,9 +1096,6 @@ def phase_camelyon(torch, np, device, card):
                 f"{CAMELYON_EPOCHS * train_want} and {eval_want} an epoch")
         if trainer.step != CAMELYON_EPOCHS * steps:
             raise AssertionError(f"trainer step {trainer.step}")
-        for name, p in trainer.model.named_parameters():
-            if not bool(torch.isfinite(p).all()):
-                raise AssertionError(f"non-finite parameter {name}")
         rows = metrics_rows(metrics)
         check_metrics_rows(np, conf, rows, range(CAMELYON_EPOCHS))
         epoch_s = [r["train_seconds"] for r in rows if r["split"] == "train"]
@@ -976,7 +1132,11 @@ def phase_camelyon(torch, np, device, card):
                                  "launches")
         log(f"  slide {test_ds.slide_names[i]} ({test_ds._ns[i]} rows, "
             f"bucket {buckets[2]}): kernel selection of {idx.shape[1]}")
-        check_plain_selection(torch, np, pred, x, mask, idx)
+        check_plain_selection(torch, np, trainer.model, conf,
+                              trainer.pos_table, x, mask, idx,
+                              preencode=trainer._resolve_preencode(
+                                  x.shape, x.dtype))
+        check_preencode(torch, trainer, x, mask, "a camelyon slide")
         del pred, x, mask
 
         # (c) where one epoch's time goes: one slide's host work step by
@@ -1003,6 +1163,23 @@ def phase_camelyon(torch, np, device, card):
             f"B_seq = {conf.B_seq} at a time): "
             f"{(time.perf_counter() - t0) * 1e3:.2f} ms for {n_batches} "
             "padded fp32 slides")
+        # (d) the assembled step's selection schedule: what 'auto' resolves
+        # to on the stacked table, and an epoch with each schedule
+        table = (r * conf.B_seq, buckets[1], conf.n_chan_in)
+        log(f"  preencode_select='auto' on the assembled step's stacked "
+            f"table {table} fp32 resolves to "
+            f"{trainer._resolve_preencode(table, torch.float32)}")
+        for pe in (False, "auto", "auto", False):
+            trainer.conf = conf.replace(preencode_select=pe)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            train_one_epoch(trainer, loader, 1,
+                            MetricsLogger(conf.task_list), trainer.conf)
+            torch.cuda.synchronize()
+            log(f"  epoch with preencode_select={pe!r}: "
+                f"{(time.perf_counter() - t0) / steps * 1e3:.2f} ms per "
+                f"optimizer step (synchronised); card {card}")
+        trainer.conf = conf
         before = sk.logits.launches
         busy = breakdown(torch, lambda: train_one_epoch(
             trainer, loader, 1, MetricsLogger(conf.task_list), conf),
@@ -1012,6 +1189,181 @@ def phase_camelyon(torch, np, device, card):
             "launches")
         if busy is not None:
             log(f"  camelyon step: device busy {busy / steps:.2f} ms of "
+                f"{epoch_s[1] / steps * 1e3:.2f} ms (idle share "
+                f"{1 - busy / (epoch_s[1] * 1e3):.3f}); card {card}")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_camelyon_e2e(torch, np, device, card):
+    """The camelyon_e2e path (raw tiles, streaming selection) through the
+    driver at full width; returns score_logits' launches in its run."""
+    from ips_tpu_torch import main as driver
+    from ips_tpu_torch.config import config_from_dict
+    from ips_tpu_torch.data.camelyon.patches import (CamelyonPatches,
+                                                     synth_tile_slides)
+    from ips_tpu_torch.ops import score_kernel as sk
+    from ips_tpu_torch.train.loop import train_one_epoch
+    from ips_tpu_torch.train.metrics import MetricsLogger
+    from ips_tpu_torch.train.streaming import StreamingSelector
+    tmp = tempfile.mkdtemp(prefix="ips_tpu_torch_e2e_")
+    try:
+        metrics = os.path.join(tmp, "metrics.jsonl")
+        conf = config_from_dict(dict(
+            CAMELYON_E2E_CONFIG, grad_encode_chunk=E2E_GRAD_ENCODE_CHUNK,
+            n_epoch=E2E_EPOCHS, n_epoch_warmup=1, metrics_path=metrics))
+        t0 = time.perf_counter()
+        counts = np.random.default_rng(SEED).integers(
+            *E2E_TRAIN_TILES, E2E_TRAIN_SLIDES).tolist()
+        tile_hw = tuple(conf.patch_size)
+        train_ds = CamelyonPatches(conf, True, slides=synth_tile_slides(
+            counts, tile_hw, seed=SEED))
+        test_ds = CamelyonPatches(conf, False, slides=synth_tile_slides(
+            E2E_TEST_TILES, tile_hw, seed=SEED + 1))
+        train_b = [train_ds.bucket_of(i) for i in range(len(train_ds))]
+        test_b = [test_ds.bucket_of(i) for i in range(len(test_ds))]
+        n_tiles = sum(train_ds._ns) + sum(test_ds._ns)
+        log(f"  corpus: {len(train_ds)} train slides of {counts} tiles "
+            f"and {len(test_ds)} test slides of {list(E2E_TEST_TILES)}, "
+            f"{tile_hw[0]}x{tile_hw[1]}x3 uint8, {n_tiles} tiles "
+            f"({n_tiles * tile_hw[0] * tile_hw[1] * 3 / 1e9:.2f} GB) in "
+            f"host memory, made in {time.perf_counter() - t0:.2f} s; "
+            f"buckets {set(train_b)} and {test_b}")
+        if set(train_b) != {2304} or test_b != [256, 768, 1280, 2304]:
+            raise AssertionError("the corpus misses its buckets")
+        steps = math.ceil(len(train_ds) / conf.B)
+        per_slide = n_chunks(conf, 2304)
+        eval_want = sum(n_chunks(conf, b) for b in test_b)
+
+        # (a) two epochs through the driver
+        trainer, wall, launches, eval_launches, peak = run_driver(
+            torch, conf, "camelyon_e2e", (train_ds, test_ds))
+        train_launches = launches - sum(eval_launches)
+        if (train_launches != E2E_EPOCHS * len(train_ds) * per_slide
+                or eval_launches != [eval_want] * E2E_EPOCHS):
+            raise AssertionError(
+                f"score kernel launched {train_launches} times in training "
+                f"and {eval_launches} in eval, expected "
+                f"{E2E_EPOCHS * len(train_ds) * per_slide} and {eval_want} "
+                "an epoch")
+        if trainer.step != E2E_EPOCHS * steps:
+            raise AssertionError(f"trainer step {trainer.step}")
+        rows = metrics_rows(metrics)
+        check_metrics_rows(np, conf, rows, range(E2E_EPOCHS))
+        epoch_s = [r["train_seconds"] for r in rows if r["split"] == "train"]
+        log(f"  camelyon_e2e driver: {E2E_EPOCHS} epochs of {steps} "
+            f"optimizer step(s) (B = {conf.B} slides of B_seq = "
+            f"{conf.B_seq}, streamed in stages of G = "
+            f"{conf.stream_chunk_group} chunks of I = {conf.I}) and "
+            f"{len(test_ds)} eval slides in {wall:.2f} s; score_logits "
+            f"launches: {train_launches} in training "
+            f"({train_launches / (E2E_EPOCHS * steps):g} per optimizer "
+            f"step), {eval_launches} in eval (0/2/4/8 per test slide); "
+            f"trainer step {trainer.step}")
+        log(f"  camelyon_e2e driver: epoch wall {epoch_s[0]:.4f} s (epoch 0, "
+            f"warm-up), {epoch_s[1]:.4f} s (epoch 1): "
+            f"{epoch_s[1] / steps * 1e3:.2f} ms per optimizer step; peak "
+            f"memory {peak / 2**20:.1f} MiB (max_memory_allocated); card "
+            f"{card}")
+        for row in rows:
+            t = conf.task_list[0]
+            log(f"    {row['split']} epoch {row['epoch']}: {t.name} loss "
+                f"{row[f'{t.name}_loss']:.4f}, {t.metric} "
+                f"{row[f'{t.name}_{t.metric}']:.3f}")
+
+        # (b) the two-group test slide: the kernel's streamed selection
+        # against the plain scorer's eager one, from generators of one seed
+        item = test_ds[3]
+        xh, mh = item["input"][None], item["mask"][None]
+        before = sk.logits.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sel = trainer.select_streaming(xh, mh, trainer.new_generator(SEED))
+        torch.cuda.synchronize()
+        sel_s = time.perf_counter() - t0
+        if sk.logits.launches - before != per_slide:
+            raise AssertionError("a 2304-bucket slide did not take "
+                                 f"{per_slide} launches")
+        idx = sel[2].cpu().numpy()
+        log(f"  slide of {test_ds._ns[3]} tiles (bucket 2304): streamed "
+            f"selection of {idx.shape[1]} in {sel_s * 1e3:.2f} ms "
+            "(synchronised)")
+        x = torch.from_numpy(xh).to(device)
+        mask = torch.from_numpy(mh).to(device)
+        check_plain_selection(torch, np, trainer.model, conf, None, x, mask,
+                              idx, seed=SEED)
+        del x, mask, sel
+
+        # (c) G = 4 against G = 1 on the same slide, bitwise
+        one_by_one = StreamingSelector(trainer)
+        one_by_one.group = 1
+        with torch.no_grad():
+            g4 = trainer.select_streaming(xh, mh, trainer.new_generator(SEED),
+                                          return_emb=True)
+            g1 = one_by_one.select(xh, mh, trainer.new_generator(SEED),
+                                   return_emb=True)
+        if not all(torch.equal(a, b) for a, b in zip(g4[2:], g1[2:])):
+            raise AssertionError("G = 4 and G = 1 select differently")
+        log("  G = 4 and G = 1: bitwise equal indices, mask and buffer "
+            "embeddings")
+        del g4, g1
+
+        # (d) streaming selection's peak memory does not grow with N
+        peaks = {}
+        for i in (2, 3):
+            item = test_ds[i]
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = trainer.select_streaming(item["input"][None],
+                                           item["mask"][None],
+                                           trainer.new_generator(SEED))
+            torch.cuda.synchronize()
+            peaks[test_b[i]] = torch.cuda.max_memory_allocated() - base
+            del out
+        log(f"  select_streaming peak above its start: "
+            + ", ".join(f"bucket {b}: {v / 2**20:.1f} MiB"
+                        for b, v in peaks.items())
+            + f" (tolerance {E2E_PEAK_TOL / 2**20:.0f} MiB)")
+        if abs(peaks[2304] - peaks[1280]) > E2E_PEAK_TOL:
+            raise AssertionError("streaming selection's peak memory grows "
+                                 "with the slide")
+
+        # (e) where an epoch's time goes: one slide's host work and its
+        # selection's device time, the loader alone, then a profiled train
+        # epoch against epoch 1's wall
+        from ips_tpu_torch.data.loader import _collate
+        from ips_tpu_torch.utils.timing import device_kernels
+        t0 = time.perf_counter()
+        item = train_ds[0]
+        t1 = time.perf_counter()
+        batch = _collate([item])
+        t2 = time.perf_counter()
+        sel = device_kernels(lambda: trainer.select_streaming(
+            batch["input"], batch["mask"], trainer.new_generator(SEED)))
+        log(f"  one train slide ({train_ds._ns[0]} tiles, "
+            f"{batch['input'].nbytes / 1e6:.1f} MB padded): pad "
+            f"{(t1 - t0) * 1e3:.2f} ms, collate {(t2 - t1) * 1e3:.2f} ms on "
+            f"the host; its selection: device busy "
+            f"{sum(us for us, _ in sel.values()) / 1e3:.2f} ms, "
+            f"{sum(n for _, n in sel.values())} device ops")
+        del item, batch
+        loader, _ = driver.build_loaders(conf, train_ds, test_ds)
+        t0 = time.perf_counter()
+        n_batches = sum(1 for _ in loader)
+        log(f"  loader alone (host, {conf.n_worker} threads, one slide at a "
+            f"time): {(time.perf_counter() - t0) * 1e3:.2f} ms for "
+            f"{n_batches} padded uint8 slides")
+        before = sk.logits.launches
+        busy = breakdown(torch, lambda: train_one_epoch(
+            trainer, loader, 1, MetricsLogger(conf.task_list), conf),
+            epoch_s[1], what=f"camelyon_e2e epoch of {steps} step(s) "
+            "(epoch 1's wall)")
+        log(f"  profiled epoch: {sk.logits.launches - before} score_logits "
+            "launches")
+        if busy is not None:
+            log(f"  camelyon_e2e step: device busy {busy / steps:.2f} ms of "
                 f"{epoch_s[1] / steps * 1e3:.2f} ms (idle share "
                 f"{1 - busy / (epoch_s[1] * 1e3):.3f}); card {card}")
         return launches
@@ -1143,10 +1495,13 @@ def main() -> int:
         driver_launches = phase_driver(torch, np, device, card)
     with Phase("camelyon"):
         camelyon_launches = phase_camelyon(torch, np, device, card)
+    with Phase("camelyon_e2e"):
+        e2e_launches = phase_camelyon_e2e(torch, np, device, card)
     entry["launches_by_path"] = {"predict": launches,
                                  "train": train_launches,
                                  "driver": driver_launches,
-                                 "camelyon": camelyon_launches}
+                                 "camelyon": camelyon_launches,
+                                 "camelyon_e2e": e2e_launches}
     entry["launches"] = sum(entry["launches_by_path"].values())
     with Phase("conv_probe"):
         conv_entry = phase_conv_probe(torch, np, device, card, pred)

@@ -97,7 +97,7 @@ class Config:
     s2d_stem: bool = False             # accepted; the port runs the plain 7x7/2 stem
     sparse_input: bool = False         # training loader ships sparse pixels
     select_dtype: str = "default"      # 'default' | 'int8' selection encoder
-    preencode_select: Any = "auto"     # True | False | 'auto' (per-chunk here)
+    preencode_select: Any = "auto"     # True | False | 'auto' (> 96 MiB table)
     steps_per_dispatch: int = 1        # training: optimizer steps per dispatch
     stream_chunk_group: int = 4        # streaming selection: chunks per group
     ln_fold: bool = False              # feature projector LayerNorm->GEMM fold
@@ -241,11 +241,6 @@ class Config:
             raise NotImplementedError(
                 "select_dtype='int8' is not ported yet: ROADMAP.md queue 1, "
                 "item 6 (export / quant / parallel)")
-        if self.preencode_select is True:
-            raise NotImplementedError(
-                "preencode_select=true is not ported yet: ROADMAP.md "
-                "queue 1, item 4 (preencode / prepermute); 'auto' and "
-                "false run the per-chunk selection")
         if self.mesh_data > 1 or self.mesh_patch > 1:
             raise NotImplementedError(
                 "mesh_data/mesh_patch > 1 is not ported yet: ROADMAP.md "

@@ -4,6 +4,8 @@
         --config config/mnist_config.yml data_dir=<dir> B=8 n_epoch=5
     python -m ips_tpu_torch.main --dataset camelyon \\
         --config config/camelyon_config.yml data_dir=<dir> ...
+    python -m ips_tpu_torch.main --dataset camelyon_e2e \\
+        --config config/camelyon_e2e_config.yml data_dir=<dir> ...
     python -m ips_tpu_torch.main --config cfg.json --device cpu ...
 
 ``--config`` takes YAML or JSON (``.json``). Any config key can be
@@ -51,9 +53,9 @@ def build_datasets(conf: Config, dataset: str):
         return (CamelyonFeatures(conf, train=True),
                 CamelyonFeatures(conf, train=False))
     if dataset == "camelyon_e2e":
-        raise NotImplementedError(
-            "the camelyon_e2e dataset (raw slide tiles, eager: false) is "
-            "not ported yet: ROADMAP.md queue 1, item 5 (streaming)")
+        from ips_tpu_torch.data.camelyon.patches import CamelyonPatches
+        return (CamelyonPatches(conf, train=True),
+                CamelyonPatches(conf, train=False))
     raise ValueError(f"unknown dataset {dataset!r}")
 
 
@@ -97,7 +99,8 @@ def run(conf: Config, dataset: str,
     """Train ``conf.n_epoch`` epochs with an eval after each; returns
     (trainer, train logger, test logger). ``datasets`` (train, test)
     replaces the ones ``dataset`` names, e.g. camelyon slides held in
-    memory (``CamelyonFeatures(conf, slides=...)``)."""
+    memory (``CamelyonFeatures(conf, slides=...)``, or
+    ``CamelyonPatches(conf, slides=...)`` for camelyon_e2e)."""
     check_ported_schedule(conf)
     np.random.seed(conf.seed)
     print("Used config:")

@@ -9,7 +9,7 @@ library is a later item (ROADMAP.md queue 1, item 10).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -34,6 +34,13 @@ def patchify_dense(img: np.ndarray, patch_size: Tuple[int, int],
     return patchify(img, patch_size, patch_stride)
 
 
-def gather_patches(src: np.ndarray, idx: np.ndarray) -> np.ndarray:
-    """out[b, k] = src[b, idx[b, k]]; src (B, N, ...), idx (B, K)."""
-    return src[np.arange(src.shape[0])[:, None], idx]
+def gather_patches(src: np.ndarray, idx: np.ndarray,
+                   out: Optional[np.ndarray] = None) -> np.ndarray:
+    """out[b, k] = src[b, idx[b, k]]; src (B, N, ...), idx (B, K). With
+    ``out`` (B, K, ...) of src's dtype, the rows are written there (e.g.
+    into pinned memory) instead of into a new array."""
+    if out is None:
+        return src[np.arange(src.shape[0])[:, None], idx]
+    for b in range(src.shape[0]):
+        np.take(src[b], idx[b], axis=0, out=out[b])
+    return out

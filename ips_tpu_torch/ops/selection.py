@@ -1,5 +1,5 @@
 """The IPS selection loop with a running top-M buffer (counterpart of
-ips_tpu/ops/selection.py, per-chunk path).
+ips_tpu/ops/selection.py).
 
   * shortcut when M >= N returns all patches, unshuffled
   * the index space (not the patch tensor) is padded so every chunk has
@@ -9,8 +9,22 @@ ips_tpu/ops/selection.py, per-chunk path).
     embeddings, and the kept set is gathered from the raw patches
   * ties go to the lower candidate position, as ``lax.top_k`` breaks them
 
-The pre-encoded and pre-permuted variants of the reference give the same
-selection; they are not ported yet (ROADMAP.md queue 1, item 4).
+Besides the per-chunk schedule, ``ips_select`` has the reference's two
+variants, which select the same patches:
+
+  * ``preencode``: encode all N patches first into a (B, N, D) table
+    (in contiguous I-slices with ``preencode_chunked``, which bounds a conv
+    encoder's activations to one slice), gather it once into permuted
+    order, and slice each chunk's rows from it;
+  * ``prepermute``: gather the patch tensor once into permuted order and
+    encode contiguous chunk slices of it.
+
+``ips_select_streaming_step`` is one iteration over a chunk the caller
+brought to the device (the streaming selection of
+``train/streaming.py``). The reference's ``unroll`` (a ``lax.scan``
+unroll factor) has no meaning in an eager loop, and ``encode_wrap``
+belongs to context parallelism (ROADMAP.md queue 1, item 6); neither is
+here.
 """
 
 from __future__ import annotations
@@ -66,13 +80,29 @@ def select_top_m(emb: torch.Tensor, emb_to_score: torch.Tensor,
     return mem_emb, mem_idx, mem_valid
 
 
+def _select_step(score_fn: ScoreFn, mem_emb, mem_idx, mem_valid, cand_emb,
+                 cand_idx, cand_valid, M: int,
+                 pos_table: Optional[torch.Tensor]):
+    """Merge I encoded candidates into the top-M buffer."""
+    all_emb = torch.cat([mem_emb, cand_emb], dim=1)
+    all_idx = torch.cat([mem_idx, cand_idx], dim=1)
+    all_valid = torch.cat([mem_valid, cand_valid], dim=1)
+    # score with positions added; the buffer keeps the raw embeddings
+    emb_to_score = (all_emb + pos_table[all_idx]
+                    if pos_table is not None else all_emb)
+    return select_top_m(all_emb, emb_to_score, all_idx, all_valid, M,
+                        score_fn)
+
+
 def ips_select(encode_fn: EncodeFn, score_fn: ScoreFn,
                patches: torch.Tensor, *, M: int, I: int,
                pos_table: Optional[torch.Tensor] = None,
                mask: Optional[torch.Tensor] = None,
                generator: Optional[torch.Generator] = None,
                shuffle: bool = False, shuffle_style: str = "batch",
-               return_emb: bool = False) -> SelectionResult:
+               return_emb: bool = False, prepermute: bool = False,
+               preencode: bool = False,
+               preencode_chunked: bool = False) -> SelectionResult:
     """Iterative Patch Selection over a resident patch tensor.
 
     Args:
@@ -83,6 +113,12 @@ def ips_select(encode_fn: EncodeFn, score_fn: ScoreFn,
       mask: optional (B, N) bool validity for variable-N data.
       generator, shuffle, shuffle_style: tie-break randomization.
       return_emb: also return the buffer's raw (B, M, D) embeddings.
+      prepermute: gather the patches into permuted order once and encode
+        contiguous slices (one extra (B, N, ...) copy on the device).
+      preencode: encode all N patches up front and slice cached embedding
+        rows per chunk (one extra (B, N, D) table on the device).
+      preencode_chunked: build that table in contiguous I-slices, padded
+        to a multiple of I, instead of one encode of all N.
     """
     B, N = patches.shape[:2]
     device = patches.device
@@ -112,22 +148,54 @@ def ips_select(encode_fn: EncodeFn, score_fn: ScoreFn,
     perm_valid = (torch.arange(N + n_pad, device=device)[None, :]
                   < n_valid[:, None])
 
+    patches_seq = _gather_rows(patches, perm) if prepermute else None
+    emb_seq = None
+    if preencode:
+        if preencode_chunked and N > I:
+            # contiguous I-slices of the zero-padded patches; encoding is
+            # per patch, so the padding changes no embedding
+            n_pad_enc = -(-N // I) * I - N
+            p_pad = (torch.cat([patches, patches.new_zeros(
+                (B, n_pad_enc) + patches.shape[2:])], dim=1)
+                if n_pad_enc else patches)
+            emb_table = torch.cat(
+                [encode_fn(p_pad[:, s:s + I])
+                 for s in range(0, N + n_pad_enc, I)], dim=1)[:, :N]
+        else:
+            emb_table = encode_fn(patches)
+        emb_seq = _gather_rows(emb_table, perm)
+
+    def chunk_emb(start: int, size: int) -> torch.Tensor:
+        if emb_seq is not None:
+            return emb_seq[:, start:start + size]
+        if patches_seq is not None:
+            return encode_fn(patches_seq[:, start:start + size])
+        return encode_fn(_gather_rows(patches, perm[:, start:start + size]))
+
     mem_idx = perm[:, :M]
     mem_valid = perm_valid[:, :M]
-    mem_emb = encode_fn(_gather_rows(patches, mem_idx))
+    mem_emb = chunk_emb(0, M)
     for start in range(M, M + n_iter * I, I):
-        cand_idx = perm[:, start:start + I]
-        cand_emb = encode_fn(_gather_rows(patches, cand_idx))
-        all_emb = torch.cat([mem_emb, cand_emb], dim=1)
-        all_idx = torch.cat([mem_idx, cand_idx], dim=1)
-        all_valid = torch.cat([mem_valid, perm_valid[:, start:start + I]],
-                              dim=1)
-        emb_to_score = (all_emb + pos_table[all_idx]
-                        if pos_table is not None else all_emb)
-        mem_emb, mem_idx, mem_valid = select_top_m(
-            all_emb, emb_to_score, all_idx, all_valid, M, score_fn)
+        mem_emb, mem_idx, mem_valid = _select_step(
+            score_fn, mem_emb, mem_idx, mem_valid, chunk_emb(start, I),
+            perm[:, start:start + I], perm_valid[:, start:start + I], M,
+            pos_table)
 
     mem_patch = _gather_rows(patches, mem_idx)
     mem_pos = pos_table[mem_idx] if pos_table is not None else None
     return SelectionResult(mem_patch, mem_pos, mem_idx, mem_valid,
                            mem_emb if return_emb else None)
+
+
+def ips_select_streaming_step(encode_fn: EncodeFn, score_fn: ScoreFn,
+                              mem_emb: torch.Tensor, mem_idx: torch.Tensor,
+                              mem_valid: torch.Tensor, chunk: torch.Tensor,
+                              chunk_idx: torch.Tensor,
+                              chunk_valid: torch.Tensor, M: int,
+                              pos_table: Optional[torch.Tensor] = None):
+    """One selection iteration over a chunk streamed from the host
+    (the reference's lazy mode): encode it, merge it into the buffer.
+    Returns the new (mem_emb, mem_idx, mem_valid)."""
+    return _select_step(score_fn, mem_emb, mem_idx, mem_valid,
+                        encode_fn(chunk), chunk_idx, chunk_valid, M,
+                        pos_table)

@@ -26,13 +26,16 @@ import numpy as np
 import torch
 
 # (name, B, L, D, TH, dtype): the MNIST selection shape (the main path
-# scores (16, M+I=200, 128) against T*H = 4*8 = 32) in both types, and the
-# camelyon feature-mode shape (one slide, L = M+I = 10000, T*H = 8), in
-# fp32 as the camelyon path runs it (the projector's embeddings) and bf16
+# scores (16, M+I=200, 128) against T*H = 4*8 = 32) in both types, the
+# camelyon feature-mode shape (one slide, L = M+I = 10000, T*H = 8) and the
+# camelyon_e2e one (one slide, L = M+I = 512 streamed tiles, T*H = 8), each
+# in fp32 as its path runs it (the scorer takes fp32 embeddings) and bf16
 LOGITS_CASES = (("mnist", 16, 200, 128, 32, "float32"),
                 ("mnist", 16, 200, 128, 32, "bfloat16"),
                 ("camelyon", 1, 10000, 512, 8, "float32"),
-                ("camelyon", 1, 10000, 512, 8, "bfloat16"))
+                ("camelyon", 1, 10000, 512, 8, "bfloat16"),
+                ("camelyon_e2e", 1, 512, 512, 8, "float32"),
+                ("camelyon_e2e", 1, 512, 512, 8, "bfloat16"))
 # (name, n, s, c, paired): layer1's chunk of 1600 patches of 13x13x64, the
 # TPU kernel's pair-packed layout (block-diagonal weights), and
 # layer2_block1's chunk (where c=128 would run on the main path)

@@ -1,5 +1,5 @@
 """Epoch loops: loader batch -> selection -> optimizer step (counterpart of
-ips_tpu/train/loop.py, single process, eager selection).
+ips_tpu/train/loop.py, single process).
 
 Each schedule of the JAX package's ``train_one_epoch`` (``loop.py:955``)
 and ``evaluate`` (``:1294``) is here, with the same batches, the same lr
@@ -17,7 +17,13 @@ per step (``warmup_cosine_lr(data_it + 1, ...)``) and the same order:
     :1179);
   * otherwise the select-assemble-train schedule with ``BatchAssembler``
     (:48), which also takes a ragged group of r and the epoch's last
-    partial optimizer batch.
+    partial optimizer batch;
+  * streaming (``eager: false``), any B_seq: each loader batch stays in
+    host memory and goes through ``select_streaming`` into the assembler,
+    a ``train_step`` once B rows are in or at the epoch's end
+    (:1041-1060); eval selects with ``return_emb`` when
+    ``_reuse_eval_emb()`` and runs ``eval_from_emb_step`` on the buffer's
+    embeddings, else ``eval_step`` on the kept patches (:1344-1372).
 
 A partial last loader batch is zero-padded to B_seq with row weight 0
 (``_pad_loader_batch``), so it adds nothing to selection, loss or
@@ -39,8 +45,8 @@ one. The streams themselves differ from ``jax.random``'s.
 Loader batches are moved to the device ahead of use, at most
 ``prefetch_depth`` in flight (at least K + 1 for a grouped schedule and
 r * K + 1 for an assembled one, whose group is stacked on the device),
-from pinned host memory with ``non_blocking=True``. The streaming
-(``eager: false``) and multi-host schedules are not ported and raise.
+from pinned host memory with ``non_blocking=True``. The multi-host
+schedules are not ported and raise.
 """
 
 from __future__ import annotations
@@ -80,10 +86,6 @@ def eval_base_seed(seed: int) -> int:
 
 def check_ported_schedule(conf: Config) -> None:
     """Raise for a schedule the port does not have, before any step."""
-    if not conf.eager:
-        raise NotImplementedError(
-            "eager: false (streaming selection from host memory) is not "
-            "ported yet: ROADMAP.md queue 1, item 5 (streaming)")
     if conf.multihost or conf.num_processes > 1:
         raise NotImplementedError(
             "multi-process training (the multi-host schedules, "
@@ -266,6 +268,19 @@ def _prep_fused(trainer: IPSTrainer, conf: Config, base: int, ib) -> _Prepped:
     return _Prepped(it, payload, labels, row_weights, fold_seed(base, it))
 
 
+def _prep_host(trainer: IPSTrainer, conf: Config, base: int,
+               ib) -> _Prepped:
+    """A loader batch for streaming selection: the patches stay in host
+    memory, the labels and row weights go to the device."""
+    it, batch = ib
+    batch, row_weights = _pad_loader_batch(conf, batch)
+    labels = _labels_from_batch(conf, batch)
+    payload = _put_common(trainer, labels, row_weights)
+    payload.update(patches=batch["input"], mask=batch.get("mask"),
+                   kind="host")
+    return _Prepped(it, payload, labels, row_weights, fold_seed(base, it))
+
+
 def _prep_sparse(trainer: IPSTrainer, conf: Config, base: int,
                  ib) -> _Prepped:
     """A sparse loader batch on the device as (idx, val) pairs; a batch
@@ -305,13 +320,22 @@ def _log_train_step(conf, tracker, logger, epoch, data_it, is_last, lr,
 
 
 def _select_into(trainer: IPSTrainer, assembler: BatchAssembler,
-                 p: _Prepped):
+                 p: _Prepped, reuse_emb: bool = False):
     """Select one loader batch with its own generator, into the
-    assembler."""
+    assembler. A batch in host memory streams; with ``reuse_emb`` its
+    buffer's embeddings take the place of the kept patches."""
     q = p.payload
-    mem_patch, mem_pos, _, mem_mask = trainer.select(
-        q["patches"], q["mask"], trainer.new_generator(p.seed))
-    assembler.add(mem_patch, mem_pos, mem_mask, q["labels"], p.row_weights)
+    gen = trainer.new_generator(p.seed)
+    if q["kind"] != "host":
+        payload, mem_pos, _, mem_mask = trainer.select(q["patches"],
+                                                       q["mask"], gen)
+    elif reuse_emb:
+        _, mem_pos, _, mem_mask, payload = trainer.select_streaming(
+            q["patches"], q["mask"], gen, return_emb=True)
+    else:
+        payload, mem_pos, _, mem_mask = trainer.select_streaming(
+            q["patches"], q["mask"], gen)
+    assembler.add(payload, mem_pos, mem_mask, q["labels"], p.row_weights)
 
 
 def _assembler_train(trainer, conf, assembler, logger, tracker, epoch,
@@ -554,7 +578,7 @@ def train_one_epoch(trainer: IPSTrainer, loader, epoch: int, logger,
     tracker = tracker or EfficiencyTracker(conf, trainer.device)
     # track_efficiency keeps the single-step schedules, timed per step
     grouped = conf.steps_per_dispatch > 1 and not conf.track_efficiency
-    if conf.B_seq == conf.B:
+    if conf.eager and conf.B_seq == conf.B:
         # sparse_input chooses the schedule; _prep_sparse sends a batch
         # that arrives dense down the dense one
         epoch_fn = (_train_epoch_sparse_grouped if conf.sparse_input
@@ -564,18 +588,20 @@ def train_one_epoch(trainer: IPSTrainer, loader, epoch: int, logger,
                            conf.steps_per_dispatch if grouped else 1, tracker)
         tracker.finish_epoch(epoch)
         return last_lr
-    if grouped and not conf.sparse_input:
+    if conf.eager and grouped and not conf.sparse_input:
         return _train_epoch_assembled(trainer, loader, epoch, logger, conf,
                                       base, steps_per_epoch)
 
-    # B_seq < B: select each loader batch, train once B rows are in
+    # B_seq < B, or streaming: select each loader batch, train once B rows
+    # are in
+    prep = _prep_fused if conf.eager else _prep_host
     last_lr = 0.0
     assembler = BatchAssembler(conf)
     for ib in enumerate(loader):
         is_last = ib[0] == steps_per_epoch - 1
         if assembler.n_prep == 0:
             tracker.start()
-        p = _prep_fused(trainer, conf, base, ib)
+        p = prep(trainer, conf, base, ib)
         _select_into(trainer, assembler, p)
         if assembler.full or is_last:
             last_lr = _assembler_train(trainer, conf, assembler, logger,
@@ -623,10 +649,10 @@ def _eval_sparse_pipelined(trainer, loader, logger, conf, base):
                    conf.steps_per_dispatch, train=False)
 
 
-def _eval_assembled_step(trainer, logger, assembler):
-    patch, pos, mmask, lab, weights = assembler.take()
-    _, task_losses, preds = trainer.eval_step(patch, pos, mmask, lab,
-                                              weights)
+def _eval_assembled_step(trainer, logger, assembler, from_emb=False):
+    payload, pos, mmask, lab, weights = assembler.take()
+    step = trainer.eval_from_emb_step if from_emb else trainer.eval_step
+    _, task_losses, preds = step(payload, pos, mmask, lab, weights)
     tl, pr = _to_host(task_losses, preds)
     logger.update(tl, pr, {k: _np(v) for k, v in lab.items()},
                   weights=_np(weights))
@@ -684,16 +710,20 @@ def evaluate(trainer: IPSTrainer, loader, logger, conf: Config) -> None:
     check_ported_schedule(conf)
     steps_per_epoch = len(loader)
     base = eval_base_seed(conf.seed)
-    if conf.B_seq == conf.B:
+    if conf.eager and conf.B_seq == conf.B:
         eval_fn = (_eval_sparse_pipelined if conf.sparse_input
                    else _eval_pipelined)
         return eval_fn(trainer, loader, logger, conf, base)
-    if conf.steps_per_dispatch > 1 and not conf.sparse_input:
+    if conf.eager and conf.steps_per_dispatch > 1 and not conf.sparse_input:
         return _eval_assembled(trainer, loader, logger, conf, base)
 
+    # streaming eval reuses the buffer's embeddings: selection ran the
+    # same eval-mode encoder the forward would
+    reuse = not conf.eager and trainer._reuse_eval_emb()
+    prep = _prep_fused if conf.eager else _prep_host
     assembler = BatchAssembler(conf)
     for ib in enumerate(loader):
-        _select_into(trainer, assembler,
-                     _prep_fused(trainer, conf, base, ib))
+        _select_into(trainer, assembler, prep(trainer, conf, base, ib),
+                     reuse)
         if assembler.full or ib[0] == steps_per_epoch - 1:
-            _eval_assembled_step(trainer, logger, assembler)
+            _eval_assembled_step(trainer, logger, assembler, reuse)

@@ -5,6 +5,8 @@ ips_tpu/train/steps.py).
 counter, and runs each phase over that one set of parameters:
 
   * ``select``        — eval-mode IPS over a (B, N, ...) batch, no gradient
+  * ``select_streaming`` — the same over a batch in host memory, chunks
+                        streamed to the device (``eager: false``)
   * ``train_step``    — the gradient forward over the (B, M) memory batch
                         (batch statistics, dropout), then AdamW at the
                         given learning rate
@@ -31,8 +33,10 @@ device); they cannot reproduce ``jax.random``'s streams.
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Dict, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -151,6 +155,7 @@ class IPSTrainer:
         self.step = 0
         self.pos_table = (torch.from_numpy(pos_enc_1d_np(conf.D, conf.N))
                           .to(self.device) if conf.use_pos else None)
+        self._streaming = None
 
     def new_generator(self, seed: int) -> torch.Generator:
         """A generator on the trainer's device, for one step's shuffle and
@@ -162,24 +167,49 @@ class IPSTrainer:
         """(encode, score) closures for the selection pass (eval mode)."""
         return self.model.encode, self.model.scores
 
+    def _resolve_preencode(self, shape: Sequence[int],
+                           dtype: torch.dtype) -> bool:
+        """``conf.preencode_select`` for a resident (B, N, ...) patch
+        table of ``shape`` and ``dtype``: 'auto' pre-encodes once the table
+        exceeds 96 MiB, unless M >= N (the shortcut encodes nothing per
+        chunk). The threshold is the JAX package's, so that 'auto' picks
+        the same selection schedule as the reference for every shape."""
+        pe = self.conf.preencode_select
+        if pe != "auto":
+            return bool(pe)
+        if self.conf.M >= shape[1]:
+            return False
+        table_bytes = math.prod(shape) * dtype.itemsize
+        return table_bytes > 96 * 2**20
+
     def _select_impl(self, patches: torch.Tensor, mask: torch.Tensor,
                      generator: Optional[torch.Generator] = None,
-                     return_emb: bool = False):
+                     return_emb: bool = False,
+                     preencode: Optional[bool] = None):
         """Eval-mode IPS over a (B, N, ...) patch tensor on the device.
 
         Returns (mem_patch, mem_pos, mem_idx, mem_mask), plus the buffer's
         raw (B, M, D) embeddings with ``return_emb=True``.
+        ``preencode=None`` resolves ``conf.preencode_select`` on this
+        tensor after its input cast; the assembled callers pass what the
+        whole stacked table resolves to.
         """
         conf = self.conf
         if conf.input_dtype == "bfloat16" and patches.dtype != torch.uint8:
             # one up-front cast halves the bytes of every chunk gather
             patches = patches.to(DTYPES[conf.input_dtype])
+        if preencode is None:
+            preencode = self._resolve_preencode(patches.shape, patches.dtype)
         encode, score = self._enc_score_fns()
         res = ips_select(encode, score, patches, M=conf.M, I=conf.I,
                          pos_table=self.pos_table, mask=mask,
                          generator=generator, shuffle=conf.shuffle,
                          shuffle_style=conf.shuffle_style,
-                         return_emb=return_emb)
+                         return_emb=return_emb, preencode=preencode,
+                         # a conv encoder pre-encodes I patches at a time,
+                         # which bounds its activations; the projector
+                         # keeps the single encode
+                         preencode_chunked=conf.is_image)
         out = (res.mem_patch, res.mem_pos, res.mem_idx, res.mem_mask)
         return out + (res.mem_emb,) if return_emb else out
 
@@ -189,6 +219,22 @@ class IPSTrainer:
                generator: Optional[torch.Generator] = None):
         """Run IPS for one batch: (mem_patch, mem_pos, mem_idx, mem_mask)."""
         return self._select_impl(patches, mask, generator)
+
+    @torch.no_grad()
+    def select_streaming(self, patches: np.ndarray,
+                         mask: Optional[np.ndarray] = None,
+                         generator: Optional[torch.Generator] = None,
+                         return_emb: bool = False):
+        """IPS over a batch held in host memory (``eager: false``): chunks
+        stream to the device, which holds O(M + I) patches. Returns what
+        :meth:`select` returns on the device; with ``return_emb=True`` the
+        patches are None and the buffer's (B, M, D) embeddings come fifth
+        (see :class:`~ips_tpu_torch.train.streaming.StreamingSelector`)."""
+        if self._streaming is None:
+            from ips_tpu_torch.train.streaming import StreamingSelector
+            self._streaming = StreamingSelector(self)
+        return self._streaming.select(np.asarray(patches), mask, generator,
+                                      return_emb=return_emb)
 
     # -- gradient step ------------------------------------------------------
     def _loss_and_aux(self, mem_patch, mem_pos, mem_mask, labels, weights,
@@ -417,12 +463,17 @@ class IPSTrainer:
     # -- assembled: r loader batches -> one optimizer step (B_seq < B) -------
     def _select_slots(self, patches, mask, generators, return_emb=False):
         """r selections over (r, B_seq, N, ...), each with its own
-        generator, concatenated into B = r * B_seq rows."""
+        generator, concatenated into B = r * B_seq rows. ``preencode`` is
+        resolved once, on the whole stacked table as it arrives (before
+        the input cast): that is the tensor resident on the device."""
         r = patches.shape[0]
         gens = generators if generators is not None else [None] * r
+        pe = self._resolve_preencode(
+            (r * patches.shape[1],) + tuple(patches.shape[2:]),
+            patches.dtype)
         return _cat_rows([
             self._select_impl(patches[j], None if mask is None else mask[j],
-                              gens[j], return_emb=return_emb)
+                              gens[j], return_emb=return_emb, preencode=pe)
             for j in range(r)])
 
     def _fused_assembled_impl(self, patches, mask, labels, weights,

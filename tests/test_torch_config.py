@@ -35,8 +35,17 @@ def test_smoke_literal_equals_camelyon_yaml():
         load_config(path)
 
 
+def test_smoke_literal_equals_camelyon_e2e_yaml():
+    path = os.path.join(REPO, "config", "camelyon_e2e_config.yml")
+    with open(path) as f:
+        assert _smoke_module().CAMELYON_E2E_CONFIG == yaml.safe_load(f)
+    assert config_from_dict(_smoke_module().CAMELYON_E2E_CONFIG) == \
+        load_config(path)
+
+
 @pytest.mark.parametrize("name", ["mnist_config.yml", "traffic_config.yml",
-                                  "camelyon_config.yml"])
+                                  "camelyon_config.yml",
+                                  "camelyon_e2e_config.yml"])
 def test_same_fields_as_reference(name):
     path = os.path.join(REPO, "config", name)
     ours, ref = load_config(path), j_load(path)
@@ -57,8 +66,7 @@ def test_overrides_and_json(tmp_path):
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"select_dtype": "int8"}, "item 6"),
-    ({"preencode_select": True}, "item 4"), ({"mesh_data": 2}, "item 6"),
+    ({"select_dtype": "int8"}, "item 6"), ({"mesh_data": 2}, "item 6"),
     ({"mesh_patch": 2}, "item 6")])
 def test_unported_values_raise(over, match):
     base = dict(_smoke_module().MNIST_CONFIG)

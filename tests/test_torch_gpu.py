@@ -366,3 +366,69 @@ def test_feature_assembled_step_selects_as_plain_scorer(no_tf32):
     for got, want in zip(kept, plain):
         assert torch.equal(got, want)
     assert bool(torch.isfinite(loss))
+
+
+# ------------------------------------------- streaming and pre-encoded selection
+def _e2e_trainer(device, **over):
+    """A small camelyon_e2e-like model: uint8 RGB tiles, ResNet-50 cut
+    after layer2, M = 8, I = 6, shuffle on."""
+    from ips_tpu_torch.config import config_from_dict
+    from ips_tpu_torch.train.steps import IPSTrainer
+    conf = config_from_dict(dict(dict(
+        B=1, B_seq=1, n_class=1, is_image=True, enc_type="resnet50",
+        n_chan_in=3, n_res_blocks=2, n_token=1, N=0, M=8, I=6,
+        patch_size=[32, 32], patch_stride=[32, 32], use_pos=False, H=2,
+        D=512, D_k=8, D_v=8, D_inner=32, compute_dtype="float32",
+        eager=False, stream_chunk_group=4, shuffle=True,
+        tasks={"t": {"id": 0, "name": "t", "act_fn": "sigmoid",
+                     "metric": "auc"}}), **over))
+    return IPSTrainer(conf, device=device, init_opt=False)
+
+
+def _tiles(N=61, n_valid=55, B=1, seed=3):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 256, (B, N, 32, 32, 3), np.uint8)
+    mask = np.zeros((B, N), bool)
+    mask[:, :n_valid] = True
+    return x, mask
+
+
+def test_streaming_groups_equal_per_chunk_on_card(no_tf32):
+    """Pinned, double-buffered stages of G = 4 chunks give the G = 1
+    per-chunk selection bitwise (8 chunks after the first M: one group,
+    a remainder of 4 one by one, the last ragged), and the eager
+    ips_select on the card from a generator of the same seed; padded
+    tiles are never kept."""
+    from ips_tpu_torch.train.streaming import StreamingSelector
+    tr = _e2e_trainer(no_tf32)
+    x, mask = _tiles()
+    one = StreamingSelector(tr)
+    one.group = 1
+    before = sk.logits.launches
+    g4 = tr.select_streaming(x, mask, tr.new_generator(5), return_emb=True)
+    assert sk.logits.launches - before == 9          # ceil((61 - 8) / 6)
+    with torch.no_grad():
+        g1 = one.select(x, mask, tr.new_generator(5), return_emb=True)
+    for a, b in zip(g4[2:], g1[2:]):
+        assert torch.equal(a, b)
+    kept = tr.select_streaming(x, mask, tr.new_generator(5))
+    eager = tr.select(torch.from_numpy(x).to(no_tf32),
+                      torch.from_numpy(mask).to(no_tf32),
+                      tr.new_generator(5))
+    assert torch.equal(kept[2], eager[2]) and torch.equal(kept[0], eager[0])
+    assert kept[0].dtype == torch.uint8 and kept[0].device.type == "cuda"
+    assert int(kept[2].max()) < 55
+
+
+def test_preencode_matches_per_chunk_on_card(no_tf32):
+    """preencode_select=true (chunked: a conv encoder) keeps the
+    per-chunk selection's indices on the card."""
+    x, mask = _tiles(N=40, n_valid=37)
+    xd = torch.from_numpy(x).to(no_tf32)
+    md = torch.from_numpy(mask).to(no_tf32)
+    tr = _e2e_trainer(no_tf32, eager=True)
+    pre = _e2e_trainer(no_tf32, eager=True, preencode_select=True)
+    pre.model.load_state_dict(tr.model.state_dict())
+    a = tr.select(xd, md, tr.new_generator(2))
+    b = pre.select(xd, md, pre.new_generator(2))
+    assert torch.equal(a[2], b[2]) and torch.equal(a[3], b[3])

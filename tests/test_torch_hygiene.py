@@ -41,6 +41,9 @@ def test_sources_found():
             "ips_tpu_torch/native.py",
             "ips_tpu_torch/data/mnist.py",
             "ips_tpu_torch/data/camelyon/dataset.py",
+            "ips_tpu_torch/data/camelyon/slide.py",
+            "ips_tpu_torch/data/camelyon/patches.py",
+            "ips_tpu_torch/train/streaming.py",
             "ips_tpu_torch/train/loop.py"} <= rel
 
 

@@ -1,7 +1,8 @@
 """The port's training CLI (``ips_tpu_torch.main``) on the CPU: two epochs
 with checkpoints, metrics lines and a profiler trace, a resumed run that
 repeats an unbroken one exactly, the checkpoint manager, the efficiency
-tracker, the datasets that are not ported yet and the overrides."""
+tracker, streaming, the datasets that are not ported yet and the
+overrides."""
 
 import json
 import os
@@ -121,8 +122,7 @@ def test_efficiency_tracker_reports_and_stops(config_path, capsys):
     assert "time: " in out and "avg. time: " in out
 
 
-@pytest.mark.parametrize("dataset,item", [
-    ("traffic", "item 8"), ("camelyon_e2e", "item 5")])
+@pytest.mark.parametrize("dataset,item", [("traffic", "item 8")])
 def test_unported_datasets_raise(config_path, dataset, item):
     with pytest.raises(NotImplementedError, match=item):
         main(["--dataset", dataset, "--config", config_path, "--device",
@@ -149,10 +149,19 @@ def test_camelyon_dataset_builds(tmp_path):
     assert train[0]["input"].shape[1] == 8
 
 
-def test_streaming_raises_before_loading(config_path):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        main(["--config", config_path, "--device", "cpu",
-              "sparse_input=false", "eager=false"])
+def test_streaming_runs_through_main(config_path, tmp_path):
+    """``eager=false`` trains and evaluates through streaming selection,
+    and ``preencode_select=true`` runs instead of raising."""
+    metrics = str(tmp_path / "m.jsonl")
+    trainer, log_train, log_test = main([
+        "--config", config_path, "--device", "cpu", "sparse_input=false",
+        "eager=false", "n_epoch=1", f"metrics_path={metrics}"])
+    assert trainer._streaming is not None and trainer.step > 0
+    with open(metrics) as f:
+        assert [json.loads(line)["split"] for line in f] == ["train",
+                                                             "test"]
+    main(["--config", config_path, "--device", "cpu",
+          "preencode_select=true", "n_epoch=1"])
 
 
 def test_overrides_parse_as_jax():
