@@ -66,12 +66,29 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                made from the seed (8 train slides of 1281..2304 tiles, 4
                test slides in buckets 256 to 2304): 2 epochs, 8
                ``score_logits`` launches per train slide (64 per optimizer
-               step) and 0/2/4/8 per test slide, one slide's selection
+               step) and 0/2/4/8 per test slide, the test probabilities
+               behind the last AUC, one slide's selection
                against the plain scorer's, G = 4 against G = 1 bitwise,
                selection's peak memory on a 1280- and a 2304-tile slide
                within 64 MiB, ms per step, peak memory and the device's
                idle share over a profiled epoch;
- 10. conv_probe — the fused BasicBlock kernel against its plain version
+ 10. preprocess — the slide-preprocessing pipeline and pretrained weights
+               (``ips_tpu_torch.data.camelyon`` synth, otsu, foreground,
+               extract_feat; ``models.pretrained``): 4 train and 2 test
+               slides of 5600x5600 made in memory from the seed; otsu
+               thresholds and foreground tiles (256 px, fg 0.01) in worker
+               processes while the next slide is made; a seeded
+               torchvision-layout ResNet-50 state dict converted to an
+               .npz and loaded with full cover; the features of every
+               tile by the pipelined encoder (224 crops, batch 64,
+               ResNet-50 with 4 stages, bf16, 2048-d): tiles/s, peak
+               memory, the device's busy and idle share; gates: finite
+               (n, 2048) fp32 features, pos and labels as the foreground
+               table and the slides say, the pipeline bitwise equal to a
+               synchronous loop, the first 8 tiles within a stated bf16
+               tolerance of the CPU forward; then one evaluation of the
+               camelyon feature config on those features;
+ 11. conv_probe — the fused BasicBlock kernel against its plain version
                at the layer1 shapes (1600, 13, 13, 64), paired
                (800, 13, 13, 128), a ragged one and layer2_block1's
                (1600, 7, 7, 128), with device times of kernel, plain
@@ -189,6 +206,22 @@ E2E_GRAD_ENCODE_CHUNK = 32
 # streaming selection's peak memory may not grow with N: a 2304-tile and a
 # 1280-tile slide peak within this of each other
 E2E_PEAK_TOL = 64 * 2**20
+
+# phase preprocess: the CAMELYON16 workflow (synth -> otsu -> foreground ->
+# extract_feat -> the feature trainer) on slides of the JAX package's own
+# camelyon_e2e learning run, 5600 x 5600 (~94 MB of uint8 each): 2 normal
+# and 2 tumour train slides, 2 test slides (one tumour); tiles of 256 at
+# level 0, center-cropped to 224, batches of 64, ResNet-50 with 4 stages
+PRE_COUNTS, PRE_HW = (2, 2, 2), 5600
+PRE_TILE, PRE_FG, PRE_BATCH = 256, 0.01, 64
+PRE_WORKERS = 4
+# card (cuDNN) against CPU features of the same bf16 encoder: both round
+# the same tensors to bf16, and a sum on the other side of a rounding
+# boundary moves one value by a bf16 ulp that the later convs carry;
+# relative Frobenius distance. On the H100 this reads 9.854e-4, and the
+# control, the card's fp32 forward against the CPU's bf16, 3.311e-3: the
+# limit lies between, so a forward that ignored the dtype fails it
+PRE_FEAT_REL = 2e-3
 
 # Kernel vs plain tolerances. Both accumulate the same fp32 products (bf16
 # inputs are widened exactly), in another order: logits of magnitude ~1
@@ -613,7 +646,8 @@ def _category(name: str) -> str:
                       ("memcpy/memset", ("memcpy", "memset")),
                       ("convolution", ("conv", "cudnn", "fprop", "dgrad",
                                        "wgrad", "implicit")),
-                      ("gemm", ("gemm", "cutlass", "cublas", "xmma")),
+                      ("gemm", ("gemm", "cutlass", "cublas", "xmma",
+                                "nvjet")),
                       ("sort (top-M)", ("sort", "radix")),
                       ("gather/index", ("gather", "index")),
                       ("reduce (softmax, mean, pool)", ("reduce", "softmax",
@@ -643,9 +677,14 @@ def breakdown(torch, request, wall_s, what="request"):
         f"{sum(n for _, n in kernels.values())} device ops")
     for cat, (ms, n) in sorted(cats.items(), key=lambda kv: -kv[1][0]):
         log(f"    {cat}: {ms:.3f} ms, {n} ops")
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
-    for name, (us, n) in top:
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    for name, (us, n) in top[:8]:
         log(f"    top: {us / 1e3:.3f} ms x{n} {name[:90]}")
+    # kernels of no category that PyTorch's own elementwise code did not
+    # launch (a library's kernel under a name the table lacks)
+    for name, (us, n) in [kv for kv in top if "at::native" not in kv[0]
+                          and _category(kv[0]) == "elementwise/other"][:6]:
+        log(f"    uncategorised: {us / 1e3:.3f} ms x{n} {name[:90]}")
     return busy_ms
 
 
@@ -1196,13 +1235,27 @@ def phase_camelyon(torch, np, device, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def e2e_corpus(conf):
+    """Phase camelyon_e2e's corpus, which scripts/e2e_learning.py trains
+    on too: the train slides' tile counts, the train and test sets."""
+    import numpy as np
+    from ips_tpu_torch.data.camelyon.patches import (CamelyonPatches,
+                                                     synth_tile_slides)
+    counts = np.random.default_rng(SEED).integers(
+        *E2E_TRAIN_TILES, E2E_TRAIN_SLIDES).tolist()
+    tile_hw = tuple(conf.patch_size)
+    return (counts,
+            CamelyonPatches(conf, True, slides=synth_tile_slides(
+                counts, tile_hw, seed=SEED)),
+            CamelyonPatches(conf, False, slides=synth_tile_slides(
+                E2E_TEST_TILES, tile_hw, seed=SEED + 1)))
+
+
 def phase_camelyon_e2e(torch, np, device, card):
     """The camelyon_e2e path (raw tiles, streaming selection) through the
     driver at full width; returns score_logits' launches in its run."""
     from ips_tpu_torch import main as driver
     from ips_tpu_torch.config import config_from_dict
-    from ips_tpu_torch.data.camelyon.patches import (CamelyonPatches,
-                                                     synth_tile_slides)
     from ips_tpu_torch.ops import score_kernel as sk
     from ips_tpu_torch.train.loop import train_one_epoch
     from ips_tpu_torch.train.metrics import MetricsLogger
@@ -1214,13 +1267,8 @@ def phase_camelyon_e2e(torch, np, device, card):
             CAMELYON_E2E_CONFIG, grad_encode_chunk=E2E_GRAD_ENCODE_CHUNK,
             n_epoch=E2E_EPOCHS, n_epoch_warmup=1, metrics_path=metrics))
         t0 = time.perf_counter()
-        counts = np.random.default_rng(SEED).integers(
-            *E2E_TRAIN_TILES, E2E_TRAIN_SLIDES).tolist()
+        counts, train_ds, test_ds = e2e_corpus(conf)
         tile_hw = tuple(conf.patch_size)
-        train_ds = CamelyonPatches(conf, True, slides=synth_tile_slides(
-            counts, tile_hw, seed=SEED))
-        test_ds = CamelyonPatches(conf, False, slides=synth_tile_slides(
-            E2E_TEST_TILES, tile_hw, seed=SEED + 1))
         train_b = [train_ds.bucket_of(i) for i in range(len(train_ds))]
         test_b = [test_ds.bucket_of(i) for i in range(len(test_ds))]
         n_tiles = sum(train_ds._ns) + sum(test_ds._ns)
@@ -1271,6 +1319,17 @@ def phase_camelyon_e2e(torch, np, device, card):
             log(f"    {row['split']} epoch {row['epoch']}: {t.name} loss "
                 f"{row[f'{t.name}_loss']:.4f}, {t.metric} "
                 f"{row[f'{t.name}_{t.metric}']:.3f}")
+        # the test predictions behind the last AUC (eval mode: the same
+        # as the driver's last evaluation): tied, or ranked?
+        from ips_tpu_torch.train.loop import evaluate
+        logger = MetricsLogger(conf.task_list)
+        _, test_loader = driver.build_loaders(conf, train_ds, test_ds)
+        evaluate(trainer, test_loader, logger, conf)
+        t = conf.task_list[0]
+        probs = np.asarray(logger.y_preds[t.name], np.float64).ravel()
+        log(f"  test probabilities after epoch {E2E_EPOCHS - 1}: "
+            f"{probs.tolist()} for labels {logger.y_trues[t.name]}, "
+            f"{np.unique(probs).size} distinct")
 
         # (b) the two-group test slide: the kernel's streamed selection
         # against the plain scorer's eager one, from generators of one seed
@@ -1367,6 +1426,229 @@ def phase_camelyon_e2e(torch, np, device, card):
                 f"{epoch_s[1] / steps * 1e3:.2f} ms (idle share "
                 f"{1 - busy / (epoch_s[1] * 1e3):.3f}); card {card}")
         return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+class Synchronous:
+    """An encoder's dispatch/fetch with no overlap: each batch is fetched
+    as soon as it is dispatched (phase preprocess's reference loop)."""
+
+    def __init__(self, enc):
+        self.enc = enc
+
+    def dispatch(self, tiles):
+        return self.enc.fetch(self.enc.dispatch(tiles))
+
+    def fetch(self, feats):
+        return feats
+
+
+def _otsu_and_tiles(name, img, polygon):
+    """Worker process (phase preprocess): one slide's otsu threshold and
+    foreground tiles, with the host seconds of each."""
+    from ips_tpu_torch.data.camelyon.foreground import slide_tiles
+    from ips_tpu_torch.data.camelyon.otsu import otsu_thresholds
+    from ips_tpu_torch.data.camelyon.slide import Slide
+    t0 = time.perf_counter()
+    [(_, _, threshold)] = otsu_thresholds({name: img})
+    t1 = time.perf_counter()
+    slide = Slide.from_array(name, img, polygon,
+                             otsu_thresholds={0: threshold})
+    xs, ys = slide_tiles(slide, tile_size=PRE_TILE, fg_perc_thresh=PRE_FG)
+    return threshold, xs, ys, t1 - t0, time.perf_counter() - t1
+
+
+def phase_preprocess(torch, np, device, card):
+    """Synthetic slides -> otsu -> foreground -> extract_feat with a
+    converted ResNet-50 checkpoint -> one evaluation of the camelyon
+    feature config."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+    from ips_tpu_torch.config import config_from_dict
+    from ips_tpu_torch.data.camelyon import extract_feat as ex
+    from ips_tpu_torch.data.camelyon.dataset import CamelyonFeatures
+    from ips_tpu_torch.data.camelyon.foreground import tables_from_tiles
+    from ips_tpu_torch.data.camelyon.slide import Slide
+    from ips_tpu_torch.data.camelyon.synth import synth_camelyon_slides
+    from ips_tpu_torch.models import pretrained as pt
+    from ips_tpu_torch.models.encoders import ConvPatchEncoder
+    from ips_tpu_torch.train.loop import evaluate
+    from ips_tpu_torch.train.metrics import MetricsLogger
+    from ips_tpu_torch.train.steps import IPSTrainer
+    tmp = tempfile.mkdtemp(prefix="ips_tpu_torch_pre_")
+    try:
+        # (a) the corpus, each slide handed to a worker for its otsu
+        # threshold and foreground tiles while the next one is made
+        slides, synth_s, futures = {}, {}, {}
+        t_all = time.perf_counter()
+        with ProcessPoolExecutor(PRE_WORKERS,
+                                 mp.get_context("spawn")) as pool:
+            t0 = time.perf_counter()
+            for s in synth_camelyon_slides(*PRE_COUNTS, PRE_HW, PRE_HW,
+                                           seed=SEED):
+                synth_s[s.name] = time.perf_counter() - t0
+                slides[s.name] = s
+                futures[s.name] = pool.submit(_otsu_and_tiles, s.name,
+                                              s.img, s.polygon)
+                t0 = time.perf_counter()
+            done = {n: f.result() for n, f in futures.items()}
+        host_s = time.perf_counter() - t_all
+        mem = {n: Slide.from_array(n, s.img, s.polygon,
+                                   otsu_thresholds={0: done[n][0]})
+               for n, s in slides.items()}
+        subsets = {sub: [n for n in slides if ("test" in n) == (sub == "test")]
+                   for sub in ("train", "test")}
+        tables = {sub: tables_from_tiles(names, [done[n][1:3]
+                                                 for n in names])
+                  for sub, names in subsets.items()}
+        for n, s in slides.items():
+            th, xs, _, otsu_s, fg_s = done[n]
+            log(f"  {n} ({PRE_HW}x{PRE_HW}, label {s.label}): synth "
+                f"{synth_s[n]:.2f} s, otsu {otsu_s:.2f} s (threshold "
+                f"{th:.3f}), foreground {fg_s:.2f} s: {len(xs)} tiles")
+        n_tiles = sum(len(t[0]["x"]) for t in tables.values())
+        log(f"  corpus host time {host_s:.2f} s for {len(slides)} slides "
+            f"({PRE_WORKERS} worker processes for otsu and foreground); "
+            f"{n_tiles} foreground tiles of {PRE_TILE} px")
+        if any(len(done[n][1]) == 0 for n in slides):
+            raise AssertionError("a slide has no foreground tiles")
+
+        # (b) weights: a seeded torchvision ResNet-50 state dict, converted
+        # and saved as the CLI would, loaded with full cover
+        npz = os.path.join(tmp, "r50.npz")
+        pt.save_npz(npz, pt.torch_resnet_to_flat(
+            pt.seeded_state_dict("resnet50", SEED), "resnet50",
+            verify="full"))
+        cpu_enc = pt.load_encoder_npz(
+            npz, ConvPatchEncoder("resnet50", 3, 4, dtype=torch.bfloat16),
+            expect_cover=True).eval()
+        enc = ex.PipelinedEncoder(pretrained_path=npz, batch_size=PRE_BATCH)
+        for (k, a), b in zip(cpu_enc.state_dict().items(),
+                             enc.model.state_dict().values()):
+            if not torch.equal(a, b.cpu()):
+                raise AssertionError(f"the card's encoder differs at {k}")
+        log(f"  {npz.rsplit(os.sep, 1)[1]}: ResNet-50 state dict converted "
+            f"and loaded with full cover ({len(cpu_enc.state_dict())} "
+            "tensors)")
+
+        # (c) extraction, after one warm-up batch, synchronised
+        def extract(encoder, sub):
+            coords, bounds = tables[sub]
+            return ex.extract_slide_features(
+                mem, coords, bounds, tile_size=PRE_TILE,
+                batch_size=PRE_BATCH, encoder=encoder)
+        first = subsets["train"][0]
+        xy0 = np.stack([tables["train"][0]["x"][:PRE_BATCH],
+                        tables["train"][0]["y"][:PRE_BATCH]], 1)
+        crop = slice((PRE_TILE - ex.TILE_CROP) // 2,
+                     (PRE_TILE - ex.TILE_CROP) // 2 + ex.TILE_CROP)
+        warm = mem[first].read_tiles(xy0, 0, (PRE_TILE, PRE_TILE))[
+            :, crop, crop]
+        enc(warm)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        feats, walls = {}, {}
+        for sub in ("train", "test"):
+            t0 = time.perf_counter()
+            feats[sub] = extract(enc, sub)
+            torch.cuda.synchronize()
+            walls[sub] = time.perf_counter() - t0
+        wall = sum(walls.values())
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  extract_feat: {n_tiles} tiles in {wall:.3f} s, "
+            f"{n_tiles / wall:.1f} tiles/s (224x224 crops, batch "
+            f"{PRE_BATCH}, ResNet-50/4 bf16, 2048-d; host reads pipelined, "
+            f"synchronised, after one warm-up batch); peak memory "
+            f"{peak / 2**20:.1f} MiB (max_memory_allocated), "
+            f"{(peak - base) / 2**20:.1f} MiB above the extraction's start; "
+            f"card {card}")
+
+        # (d) gates: shapes, pos and labels, the synchronous loop bitwise,
+        # the first 8 tiles against the CPU
+        for sub, (coords, bounds) in tables.items():
+            for n, s_id, e_id in zip(bounds["name"], bounds["start_id"],
+                                     bounds["end_id"]):
+                f = feats[sub][n]
+                if (f["img"].shape != (e_id - s_id + 1, 2048)
+                        or f["img"].dtype != np.float32
+                        or not np.isfinite(f["img"]).all()):
+                    raise AssertionError(f"{n}: features {f['img'].shape} "
+                                         f"{f['img'].dtype}, or not finite")
+                if (not np.array_equal(f["pos"],
+                                       coords["pos_id"][s_id:e_id + 1])
+                        or f["label"] != slides[n].label):
+                    raise AssertionError(f"{n}: pos or label differ from "
+                                         "the foreground table and slide")
+            sync = extract(Synchronous(enc), sub)
+            for n in feats[sub]:
+                if not np.array_equal(sync[n]["img"], feats[sub][n]["img"]):
+                    raise AssertionError(f"{n}: the pipelined features "
+                                         "differ from the synchronous loop")
+        log("  features finite, (n, 2048) fp32, pos and labels as the "
+            "foreground tables and slides; pipelined = synchronous loop, "
+            "bitwise")
+        x8 = torch.from_numpy(np.ascontiguousarray(warm[:8])).float() / 255.0
+        with torch.inference_mode():
+            want = cpu_enc(x8).numpy()
+        got = feats["train"][first]["img"][:8]
+        # the control: the same weights in fp32 on the card, as a forward
+        # that ignored the encoder's dtype would run, must fail the gate
+        fp32_enc = pt.load_encoder_npz(
+            npz, ConvPatchEncoder("resnet50", 3, 4, dtype=torch.float32),
+            expect_cover=True).eval().to(device)
+        with torch.inference_mode():
+            ctl = fp32_enc(x8.to(device)).cpu().numpy()
+        del fp32_enc
+        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        rel_ctl = float(np.linalg.norm(ctl - want) / np.linalg.norm(want))
+        log(f"  first 8 tiles, card against CPU (same bf16 encoder): "
+            f"relative Frobenius distance {rel:.3e} (tolerance "
+            f"{PRE_FEAT_REL}), max|err| {np.abs(got - want).max():.3e} of "
+            f"max|feature| {np.abs(want).max():.3e}; control, the card's "
+            f"fp32 forward against the CPU's bf16: {rel_ctl:.3e}")
+        if not rel < PRE_FEAT_REL:
+            raise AssertionError("the card's features are not the CPU's")
+        if not rel_ctl >= PRE_FEAT_REL:
+            raise AssertionError("the tolerance passes an fp32 forward")
+
+        # (e) where the extraction's time goes: the train set profiled,
+        # against its unprofiled wall
+        n_train = len(tables["train"][0]["x"])
+        busy = breakdown(torch, lambda: extract(enc, "train"),
+                         walls["train"], what=f"extraction of {n_train} "
+                         "train tiles")
+        if busy is not None:
+            log(f"  extraction: device busy {busy:.2f} ms of "
+                f"{walls['train'] * 1e3:.2f} ms for {n_train} tiles (idle "
+                f"share {1 - busy / (walls['train'] * 1e3):.3f}); card "
+                f"{card}")
+
+        # (f) the features feed the camelyon trainer: one evaluation
+        conf = config_from_dict(dict(CAMELYON_CONFIG, n_worker=2))
+        ds = {sub: CamelyonFeatures(conf, sub == "train", slides={
+            n: (f["img"], f["label"]) for n, f in feats[sub].items()})
+            for sub in ("train", "test")}
+        item = ds["train"][0]
+        if item["input"].shape[1] != 2048:
+            raise AssertionError("a feature slide is not 2048-wide")
+        from ips_tpu_torch import main as driver
+        _, test_loader = driver.build_loaders(conf, ds["train"], ds["test"])
+        trainer = IPSTrainer(conf)
+        logger = MetricsLogger(conf.task_list)
+        evaluate(trainer, test_loader, logger, conf)
+        logger.compute_metric()
+        t = conf.task_list[0]
+        loss, metric = (logger.losses_epoch[t.name][-1],
+                        logger.metrics[t.name][-1])
+        if not (np.isfinite(loss) and 0.0 <= metric <= 1.0):
+            raise AssertionError(f"camelyon eval on the features: loss "
+                                 f"{loss}, {t.metric} {metric}")
+        log(f"  camelyon feature config on the extracted features: "
+            f"{len(ds['train'])} train and {len(ds['test'])} test slides "
+            f"load; one evaluation: {t.name} loss {loss:.4f}, {t.metric} "
+            f"{metric:.3f}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1473,10 +1755,10 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import numpy as np
 
+    from ips_tpu_torch.utils.device import fp32_matmuls
     # stated numerics: fp32 products in full fp32 (the main path's convs
     # and projections compute in bf16)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    fp32_matmuls()
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
     with Phase("device"):
@@ -1503,6 +1785,8 @@ def main() -> int:
                                  "camelyon": camelyon_launches,
                                  "camelyon_e2e": e2e_launches}
     entry["launches"] = sum(entry["launches_by_path"].values())
+    with Phase("preprocess"):
+        phase_preprocess(torch, np, device, card)
     with Phase("conv_probe"):
         conv_entry = phase_conv_probe(torch, np, device, card, pred)
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -10,7 +10,10 @@ of ``scripts/probe_conv.py``) with its fused BasicBlock kernel
 (``csrc/conv_block.cu``); training (``train.steps.IPSTrainer``) and its
 driver for megapixel MNIST (``python -m ips_tpu_torch.main``: data
 generator and loader, epoch loops, sparse densify on the device,
-metrics, checkpoints).
+metrics, checkpoints); the camelyon feature and end-to-end paths with
+streaming selection; the slide-preprocessing pipeline
+(``ips_tpu_torch.data.camelyon``: synth, otsu, foreground, extract_feat)
+and pretrained encoder weights (``ips_tpu_torch.models.pretrained``).
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``.
 """
 

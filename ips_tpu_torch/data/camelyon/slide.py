@@ -8,10 +8,11 @@ Slides are read through a pluggable *reader*:
   * in-memory numpy pyramids (tests, synthetic data; ``.npy`` files).
 
 ``Slide`` carries the name, annotations, tumour flag, per-level otsu
-thresholds and region reads; ``parse_asap_annotations`` reads ASAP
-annotation XML; ``SlideManager`` walks ``training/normal``,
-``training/tumor`` and ``testing/images`` with the otsu CSV. PIL and
-openslide are imported only where a file of theirs is opened.
+thresholds and region reads (``Slide.from_array`` holds one in memory);
+``parse_asap_annotations`` reads ASAP annotation XML; ``SlideManager``
+walks ``training/normal``, ``training/tumor`` and ``testing/images`` with
+the otsu CSV. PIL and openslide are imported only where a file of theirs
+is opened.
 """
 
 from __future__ import annotations
@@ -222,9 +223,23 @@ class Slide:
     _reader: Optional[SlideReader] = None
     _annotations: Optional[List[Annotation]] = None
 
+    @classmethod
+    def from_array(cls, name: str, img: np.ndarray,
+                   polygon: Optional[Sequence[Point]] = None,
+                   otsu_thresholds: Optional[Dict[int, float]] = None,
+                   n_levels: int = 3) -> "Slide":
+        """A slide held in memory: an (H, W, 3) uint8 array and the tumour
+        annotation's polygon (level-0 (x, y)) if it has one."""
+        anns = ([] if polygon is None else
+                [Annotation("_0", "Polygon", "Tumor", "#F4FA58",
+                            [tuple(p) for p in polygon])])
+        return cls(name, "", otsu_thresholds=dict(otsu_thresholds or {}),
+                   _reader=ArraySlide(img, n_levels),
+                   _annotations=anns)
+
     @property
     def is_annotated(self) -> bool:
-        return self.annotation_filename is not None
+        return self.annotation_filename is not None or bool(self._annotations)
 
     @property
     def has_tumor(self) -> bool:
@@ -263,7 +278,7 @@ class Slide:
         return self.otsu_thresholds.get(level)
 
     def close(self):
-        if self._reader is not None:
+        if self._reader is not None and self.filename:
             self._reader.close()
             self._reader = None
 

@@ -114,9 +114,15 @@ class DataLoader:
     def skip_epochs(self, k: int) -> None:
         """Advance the shuffle stream past ``k`` epochs without loading
         data, so that a run resumed at epoch k sees the batch order an
-        unbroken run saw there."""
+        unbroken run saw there. A dataset that draws from a stream of its
+        own per item (a ``skip_draws(n)`` method) skips the items of those
+        epochs too."""
+        n_items = 0
         for _ in range(max(0, k)):
-            self._batch_indices()
+            n_items += sum(len(b) for b in self._batch_indices())
+        skip = getattr(self.dataset, "skip_draws", None)
+        if skip is not None and n_items:
+            skip(n_items)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         batches = self._batch_indices()

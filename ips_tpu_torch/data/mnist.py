@@ -274,6 +274,8 @@ class MegapixelMNIST(Dataset):
 
 
 def main(argv=None):
+    from ips_tpu_torch.utils.device import fp32_matmuls
+    fp32_matmuls()
     p = argparse.ArgumentParser(description="Create the Megapixel MNIST dataset")
     p.add_argument("--n_train", type=int, default=5000)
     p.add_argument("--n_test", type=int, default=1000)

@@ -25,6 +25,7 @@ import torch
 
 from ips_tpu_torch.config import Config, load_config
 from ips_tpu_torch.train.steps import IPSTrainer
+from ips_tpu_torch.utils.device import fp32_matmuls
 
 
 class Predictor:
@@ -114,6 +115,7 @@ def _load_inputs(conf: Config, paths):
 
 
 def main(argv=None):
+    fp32_matmuls()
     p = argparse.ArgumentParser(description="ips_tpu_torch inference")
     p.add_argument("--config", required=True,
                    help="YAML (needs pyyaml) or JSON config")

@@ -34,6 +34,7 @@ from ips_tpu_torch.train.loop import (check_ported_schedule, evaluate,
                                       train_one_epoch)
 from ips_tpu_torch.train.metrics import MetricsLogger
 from ips_tpu_torch.train.steps import IPSTrainer
+from ips_tpu_torch.utils.device import fp32_matmuls
 from ips_tpu_torch.utils.profiling import EfficiencyTracker
 
 DATASETS = ("mnist", "traffic", "camelyon", "camelyon_e2e")
@@ -165,6 +166,7 @@ def run(conf: Config, dataset: str,
 
 
 def main(argv=None):
+    fp32_matmuls()
     p = argparse.ArgumentParser(description="ips_tpu_torch training driver")
     p.add_argument("--dataset", default="mnist", choices=DATASETS)
     p.add_argument("--config", default=None,

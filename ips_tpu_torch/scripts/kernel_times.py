@@ -76,6 +76,8 @@ def _card_state():
 
 
 def main() -> int:
+    from ips_tpu_torch.utils.device import fp32_matmuls
+    fp32_matmuls()
     if not torch.cuda.is_available():
         print("kernel_times: needs a CUDA card", file=sys.stderr)
         return 1

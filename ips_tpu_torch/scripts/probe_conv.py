@@ -44,7 +44,7 @@ import torch.nn.functional as F
 
 from ips_tpu_torch.ops.conv_block import (conv_taps, eval_block,
                                           fused_block, kernel_params)
-from ips_tpu_torch.utils.device import resolve_device
+from ips_tpu_torch.utils.device import fp32_matmuls, resolve_device
 from ips_tpu_torch.utils.timing import bound_ms, cuda_ms, device_ms
 
 BF16 = torch.bfloat16
@@ -216,14 +216,13 @@ def _parse(argv: Optional[List[str]]) -> argparse.Namespace:
 
 
 def main(argv: Optional[List[str]] = None) -> dict:
+    # stated numerics: fp32 convs and products in full fp32
+    fp32_matmuls()
     args = _parse(argv)
     device = resolve_device(args.device)
     p, s, c = (int(v) for v in args.shape.split(","))
     if p % 2:
         raise ValueError(f"--shape: P={p} must be even to pair patches")
-    # stated numerics: fp32 convs and products in full fp32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     on_card = device.type == "cuda"
     name = torch.cuda.get_device_name(device) if on_card else "cpu"
     print(f"probing on {name}", file=sys.stderr, flush=True)

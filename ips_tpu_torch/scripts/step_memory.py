@@ -27,6 +27,8 @@ import torch
 
 
 def main(argv=None) -> int:
+    from ips_tpu_torch.utils.device import fp32_matmuls
+    fp32_matmuls()
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--config", required=True)
     p.add_argument("--grad_encode_chunk", type=int, default=None)

@@ -228,8 +228,8 @@ def check(results: List[Dict[str, object]]) -> None:
 
 
 def main() -> None:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from ips_tpu_torch.utils.device import fp32_matmuls
+    fp32_matmuls()
     results = []
     for seed in SEEDS:
         results.append(parity(torch.device("cuda"), seed))

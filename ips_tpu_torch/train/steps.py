@@ -129,15 +129,19 @@ class IPSTrainer:
                  generator: Optional[torch.Generator] = None,
                  init_opt: bool = True):
         """Weights are drawn from ``generator`` (default: a CPU generator
-        seeded with ``conf.seed``); load trained ones with
+        seeded with ``conf.seed``); with ``pretrained`` the image encoder
+        then loads ``conf.pretrained_path``, an ``.npz`` converted by
+        :mod:`ips_tpu_torch.models.pretrained`. Load trained weights with
         :mod:`ips_tpu_torch.weights` or ``model.load_state_dict``.
         ``init_opt=False`` skips the AdamW state, for inference."""
         self.conf = conf
         self.device = resolve_device(device)
-        if conf.pretrained:
-            raise NotImplementedError(
-                "pretrained encoder weights are not ported yet: load them "
-                "through ips_tpu_torch.weights instead")
+        if conf.is_image and conf.pretrained and not conf.pretrained_path:
+            raise ValueError(
+                "pretrained=True requires pretrained_path: convert a local "
+                "checkpoint with `python -m ips_tpu_torch.models.pretrained "
+                "resnet.pth weights.npz` and set pretrained_path, or set "
+                "pretrained=false")
         if generator is None:
             generator = torch.Generator().manual_seed(conf.seed)
         # module constructors draw their default init from the global
@@ -145,6 +149,16 @@ class IPSTrainer:
         with torch.random.fork_rng(devices=[]):
             self.model = IPSModel(conf)
         init_weights(self.model, generator)
+        if conf.is_image and conf.pretrained:
+            # the stem is rebuilt (kept at its initial values) when the
+            # input is not 3-channel; every other mismatch, and every
+            # encoder tensor the file does not hold, raises
+            from ips_tpu_torch.models.pretrained import load_encoder_npz
+            load_encoder_npz(conf.pretrained_path, self.model,
+                             prefix="encoder/",
+                             skip_keys=(("params/conv1/kernel",)
+                                        if conf.n_chan_in != 3 else ()),
+                             expect_cover=True)
         self.model.to(self.device)
         # AdamW with the reference's settings: betas (0.9, 0.999), eps 1e-8,
         # weight decay on every parameter; the lr is set before each step

@@ -130,6 +130,47 @@ def test_loader_skip_epochs_continues_the_stream():
     assert resumed == run[2:]
 
 
+class Drawing(Indexed):
+    """Draws from a stream of its own per item, as an augmenting dataset
+    does, and can skip draws (the loader's ``skip_draws`` hook)."""
+
+    def __init__(self, n):
+        super().__init__(n)
+        self.draws = 0
+        self.skipped = []
+
+    def __getitem__(self, i):
+        self.draws += 1
+        return super().__getitem__(i)
+
+    def skip_draws(self, n):
+        self.skipped.append(n)
+        self.draws += n
+
+
+@pytest.mark.parametrize("kw", [
+    dict(batch_size=4, shuffle=True, seed=3),
+    dict(batch_size=4, shuffle=True, seed=3, drop_last=True),
+    dict(batch_size=3, shuffle=True, seed=7, bucket_fn=lambda i: i % 3,
+         drop_last=True)], ids=["shuffle", "drop_last", "bucket_drop_last"])
+@pytest.mark.parametrize("k", [0, 1, 3])
+def test_loader_skip_epochs_calls_skip_draws_as_jax(kw, k):
+    """A run resumed at epoch k has had its dataset skip the draws an
+    unbroken run made in epochs 0..k-1, as the JAX loader does."""
+    unbroken = Drawing(23)
+    ld = t_loader.DataLoader(unbroken, **kw)
+    for _ in range(k):
+        list(ld)
+    skips = {}
+    for mod in (t_loader, j_loader):
+        resumed = Drawing(23)
+        mod.DataLoader(resumed, **kw).skip_epochs(k)
+        skips[mod] = resumed.skipped
+        assert resumed.draws == unbroken.draws
+    assert skips[t_loader] == skips[j_loader] == (
+        [unbroken.draws] if k else [])
+
+
 def test_loader_collates_and_raises_worker_errors():
     class Bad(Indexed):
         def __getitem__(self, i):

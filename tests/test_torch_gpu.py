@@ -432,3 +432,82 @@ def test_preencode_matches_per_chunk_on_card(no_tf32):
     a = tr.select(xd, md, tr.new_generator(2))
     b = pre.select(xd, md, pre.new_generator(2))
     assert torch.equal(a[2], b[2]) and torch.equal(a[3], b[3])
+
+
+# ------------------------------------------- preprocessing: ResNet-50 / 4
+@pytest.fixture()
+def r50_npz(tmp_path):
+    from ips_tpu_torch.models import pretrained as pt
+    path = str(tmp_path / "r50.npz")
+    pt.save_npz(path, pt.torch_resnet_to_flat(
+        pt.seeded_state_dict("resnet50", 4), "resnet50"))
+    return path
+
+
+def _r50_card_cpu(device, npz, card_dtype, cpu_dtype):
+    """Features of 6 random tiles: the card's encoder in ``card_dtype``,
+    the CPU's in ``cpu_dtype``, both at the npz's weights."""
+    from ips_tpu_torch.models.encoders import ConvPatchEncoder
+    from ips_tpu_torch.models.pretrained import load_encoder_npz
+
+    def encoder(dtype):
+        return load_encoder_npz(npz, ConvPatchEncoder(
+            "resnet50", 3, 4, dtype=dtype), expect_cover=True).eval()
+    x = torch.from_numpy(np.random.default_rng(3).random(
+        (6, 224, 224, 3), np.float32))
+    with torch.inference_mode():
+        want = encoder(cpu_dtype)(x).numpy()
+        got = encoder(card_dtype).to(device)(x.to(device)).cpu().numpy()
+    assert got.shape == (6, 2048) and np.isfinite(got).all()
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+# fp32 with TF32 off: the same products summed in another order; bf16: a
+# rounding flip carried by the later convs (relative Frobenius distance),
+# tight enough that an fp32 forward on the card fails it (the next test).
+# On the H100 the bf16 case reads 9.88e-4 and the fp32 control 3.07e-3
+R50_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_resnet50_full_depth_card_matches_cpu(no_tf32, r50_npz, dtype):
+    rel = _r50_card_cpu(no_tf32, r50_npz, dtype, dtype)
+    print(f"card against CPU, {dtype}: relative distance {rel:.3e}")
+    assert rel < R50_REL[dtype]
+
+
+def test_resnet50_bf16_tolerance_refuses_fp32(no_tf32, r50_npz):
+    """The control of the bf16 case: an encoder that ran in fp32 on the
+    card, held against the CPU's bf16 forward, fails its tolerance."""
+    rel = _r50_card_cpu(no_tf32, r50_npz, torch.float32, torch.bfloat16)
+    print(f"card fp32 against CPU bf16: relative distance {rel:.3e}")
+    assert rel >= R50_REL[torch.bfloat16]
+
+
+def test_pipelined_extraction_equals_synchronous_on_card(no_tf32,
+                                                         r50_npz):
+    """Two pinned buffers in flight, the tail batch padded: the pipelined
+    features equal batch-by-batch synchronous ones bitwise, and the
+    encoder's own forward of the padded batch."""
+    from ips_tpu_torch.data.camelyon.extract_feat import PipelinedEncoder
+    enc = PipelinedEncoder(pretrained_path=r50_npz, batch_size=8)
+    assert enc.device.type == "cuda"
+    tiles = np.random.default_rng(5).integers(0, 256, (29, 224, 224, 3),
+                                              np.uint8)
+    batches = [tiles[s:s + 8] for s in range(0, 29, 8)]
+    piped, pending = [], None
+    for b in batches:
+        h = enc.dispatch(b)
+        if pending is not None:
+            piped.append(enc.fetch(pending))
+        pending = h
+    piped.append(enc.fetch(pending))
+    sync = [enc.fetch(enc.dispatch(b)) for b in batches]
+    for p, s in zip(piped, sync):
+        assert p.dtype == np.float32 and np.array_equal(p, s)
+    tail = torch.zeros((8, 224, 224, 3), dtype=torch.uint8)
+    tail[:5] = torch.from_numpy(batches[-1])
+    with torch.inference_mode():
+        want = enc.model(tail.to(no_tf32).float() / 255.0)[:5].cpu().numpy()
+    assert np.array_equal(piped[-1], want)

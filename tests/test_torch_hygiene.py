@@ -44,7 +44,15 @@ def test_sources_found():
             "ips_tpu_torch/data/camelyon/slide.py",
             "ips_tpu_torch/data/camelyon/patches.py",
             "ips_tpu_torch/train/streaming.py",
-            "ips_tpu_torch/train/loop.py"} <= rel
+            "ips_tpu_torch/train/loop.py",
+            "ips_tpu_torch/models/pretrained.py",
+            "ips_tpu_torch/data/camelyon/methods.py",
+            "ips_tpu_torch/data/camelyon/synth.py",
+            "ips_tpu_torch/data/camelyon/otsu.py",
+            "ips_tpu_torch/data/camelyon/foreground.py",
+            "ips_tpu_torch/data/camelyon/extract_feat.py",
+            "ips_tpu_torch/data/camelyon/viz.py",
+            "ips_tpu_torch/scripts/e2e_learning.py"} <= rel
 
 
 @pytest.mark.parametrize("path", SOURCES,
