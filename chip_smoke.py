@@ -10,10 +10,13 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
   2. build   — ``nvcc`` builds every kernel from csrc/, all at once, and
                prints each instantiation's registers, shared memory and
                spills (``-Xptxas -v``);
-  3. kernels — each kernel against its plain PyTorch version at the
+  3. kernels — score_logits against its plain PyTorch version at the
                shapes of the main path (and of later paths), with stated
-               tolerances; CUDA-event times of kernel, plain version and
-               one library call;
+               tolerances; then both kernels' device times, their plain
+               versions' and their library calls' from
+               ``scripts/kernel_times.py`` in a process of its own (the
+               profiler's where every profile was whole, else CUDA-event
+               times, as each entry's ``ms_by`` says);
   4. predict — the main path: ``Predictor`` at the full megapixel-MNIST
                width (config/mnist_config.yml, random weights from the
                seed), several requests, launch counts and output checks,
@@ -72,7 +75,20 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                selection's peak memory on a 1280- and a 2304-tile slide
                within 64 MiB, ms per step, peak memory and the device's
                idle share over a profiled epoch;
- 10. preprocess — the slide-preprocessing pipeline and pretrained weights
+ 10. traffic — the traffic-sign path through the driver at the full width
+               of config/traffic_config.yml (1200x1600 RGB, N = 192
+               patches of 100x100x3, M = 10, I = 32, B = 16, ResNet-18
+               with all 4 blocks, D = 512, bf16, fp32 host normalization,
+               8 loader threads) on a synthetic STS corpus made in memory
+               from the seed (46 images a set): 2 epochs (the dense eager
+               schedule, padded tail batches), 6 ``score_logits``
+               launches per step and per eval batch, metrics lines, the
+               saved checkpoint restored bitwise, one augmented batch's
+               finite predictions and its selection against the plain
+               scorer's, a train item's host time (augment, normalize and
+               patchify), ms per step, peak memory and a profiler
+               breakdown of one epoch with the device's idle share;
+ 11. preprocess — the slide-preprocessing pipeline and pretrained weights
                (``ips_tpu_torch.data.camelyon`` synth, otsu, foreground,
                extract_feat; ``models.pretrained``): 4 train and 2 test
                slides of 5600x5600 made in memory from the seed; otsu
@@ -88,11 +104,11 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                synchronous loop, the first 8 tiles within a stated bf16
                tolerance of the CPU forward; then one evaluation of the
                camelyon feature config on those features;
- 11. conv_probe — the fused BasicBlock kernel against its plain version
+ 12. conv_probe — the fused BasicBlock kernel against its plain version
                at the layer1 shapes (1600, 13, 13, 64), paired
                (800, 13, 13, 128), a ragged one and layer2_block1's
-               (1600, 7, 7, 128), with device times of kernel, plain
-               version and the cuDNN yardstick; then the
+               (1600, 7, 7, 128), timed in phase kernels; the main
+               path's encoder layer1 timed at the same shape; then the
                layer1 conv probe (``ips_tpu_torch.scripts.probe_conv``)
                at its real shape, its kernel launches counted.
 
@@ -180,6 +196,25 @@ CAMELYON_E2E_CONFIG = {
     "compute_dtype": "bfloat16", "mesh_data": 1, "mesh_patch": 1,
 }
 
+# config/traffic_config.yml as a literal, held equal to the YAML file by
+# the same test.
+TRAFFIC_CONFIG = {
+    "n_epoch": 150, "B": 16, "B_seq": 16, "n_epoch_warmup": 10, "lr": 0.0003,
+    "wd": 0.1, "n_class": 4, "data_dir": "data/traffic/dsets",
+    "n_worker": 8, "pin_memory": True, "eager": True, "eps": 1e-06,
+    "seed": 0, "track_efficiency": False, "track_epoch": 0,
+    "is_image": True, "enc_type": "resnet18", "pretrained": False,
+    "n_chan_in": 3, "n_res_blocks": 4, "shuffle": True,
+    "shuffle_style": "batch", "n_token": 1, "N": 192, "M": 10, "I": 32,
+    "patch_size": [100, 100], "patch_stride": [100, 100], "use_pos": False,
+    "H": 8, "D": 512, "D_k": 64, "D_v": 64, "D_inner": 2048,
+    "attn_dropout": 0.1, "dropout": 0.1,
+    "tasks": {"task0": {"id": 0, "name": "sign", "act_fn": "softmax",
+                        "metric": "accuracy"}},
+    "compute_dtype": "bfloat16", "use_pallas": False, "mesh_data": 1,
+    "mesh_patch": 1,
+}
+
 SEED = 0
 N_REQUESTS = 4
 N_TIMED_DISPATCHES = 3      # timed fused_multi_step calls after a warm-up
@@ -206,6 +241,15 @@ E2E_GRAD_ENCODE_CHUNK = 32
 # streaming selection's peak memory may not grow with N: a 2304-tile and a
 # 1280-tile slide peak within this of each other
 E2E_PEAK_TOL = 64 * 2**20
+
+# phase traffic: a synthetic STS corpus in memory at the size of the JAX
+# package's own traffic learning run, 1200 x 1600 (RESULTS.md), 46 images
+# a set (cut from STS's ~750 train images): after the visibility filter
+# 43 a split, 2 full batches of B = 16 and a padded tail of 11 (48 a set
+# would leave 48 test images, no padded batch); 2 epochs
+TRAFFIC_IMAGES, TRAFFIC_HW, TRAFFIC_EPOCHS = 46, (1200, 1600), 2
+# host time of one train item, averaged over this many items
+TRAFFIC_HOST_ITEMS = 4
 
 # phase preprocess: the CAMELYON16 workflow (synth -> otsu -> foreground ->
 # extract_feat -> the feature trainer) on slides of the JAX package's own
@@ -306,17 +350,62 @@ def phase_build():
     log(f"built {len(built)} kernels in {dt:.2f} s")
 
 
+def kernel_times():
+    """Both kernels' device times, their plain versions' and their library
+    calls' at the timed shapes, from ``scripts/kernel_times.py`` in a
+    process of its own (profiles late in this long process lose kernel
+    records; a fresh process's have not). Returns its rows by (kernel,
+    case, dtype)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run(
+        [sys.executable, "-m", "ips_tpu_torch.scripts.kernel_times"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"kernel_times failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    rows = {}
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            r = json.loads(line)
+            rows[r["kernel"], r["case"], r["dtype"]] = r
+        elif line.startswith("card: "):
+            log(f"  kernel_times {line}")
+    return rows
+
+
+def timing_fields(row, bound_ms):
+    """The ``ms``, ``plain_ms`` and ``library_ms`` of a kernel_times row:
+    the profiler's device times where all three profiles were whole, else
+    all three CUDA-event times of back-to-back calls; ``ms_by`` says
+    which. Logs both and every refused profile."""
+    keys = ("ms", "plain_ms", "library_ms")
+    by = "profiler" if None not in (row[k] for k in keys) else "events"
+    for counts in row["refused_profiles"]:
+        log(f"    refused a profile with kernel counts {counts}")
+    if by == "events":
+        log("    profiles refused: the times below are CUDA-event times")
+    for k in keys:
+        dev = "refused" if row[k] is None else f"{row[k] * 1e3:.2f} us"
+        log(f"    {k}: device {dev}, per call in a back-to-back loop "
+            f"{row['event_' + k] * 1e3:.2f} us (bound "
+            f"{bound_ms * 1e3:.3f} us)")
+    return dict({k: row[k if by == "profiler" else "event_" + k]
+                 for k in keys}, ms_by=by)
+
+
 def phase_kernels(torch, np, device):
-    """score_logits against its plain version; returns the JSON entry for
-    the main-path shape, with every timed shape under ``shapes``."""
+    """score_logits against its plain version, then both kernels' times in
+    a process of their own; returns the JSON entry for the main-path
+    shape, with every timed shape under ``shapes``, and the times."""
     from ips_tpu_torch.ops import score_kernel as sk
     from ips_tpu_torch.scripts.kernel_times import LOGITS_CASES, logits_bound
-    from ips_tpu_torch.utils.timing import cuda_ms, device_ms
     rng = np.random.default_rng(SEED)
     # the timed shapes, the MNIST selection shape first, and a ragged L
     cases = LOGITS_CASES + (("ragged", 4, 1037, 128, 32, "float32"),)
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    main_entry, shapes = None, []
+    errs = {}
     for name, B, L, D, TH, dt in cases:
         x = torch.from_numpy(rng.standard_normal((B, L, D), np.float32)
                              ).to(device, dtypes[dt])
@@ -328,46 +417,12 @@ def phase_kernels(torch, np, device):
         err = (got - ref).abs().max().item()
         torch.testing.assert_close(got, ref, rtol=LOGITS_RTOL,
                                    atol=LOGITS_ATOL)
-        s_got = sk.scores(x, w)
-        s_ref = sk.fast_scores(x, w)
-        torch.testing.assert_close(s_got, s_ref, rtol=SCORES_RTOL,
-                                   atol=SCORES_ATOL)
-        fns = {
-            "kernel": lambda: sk.logits(x, w),
-            "plain": lambda: sk.plain_logits(x, w),
-            "torch.matmul": lambda: torch.matmul(x, w),
-            "scores kernel+epilogue": lambda: sk.scores(x, w),
-            "scores plain": lambda: sk.fast_scores(x, w),
-            "scores matmul+softmax yardstick": lambda: torch.softmax(
-                torch.matmul(x, w).float(), dim=1).mean(-1)}
-        host = {k: cuda_ms(f) for k, f in fns.items()}
-        dev = {k: device_ms(f) for k, f in fns.items()}
-        if None in dev.values():            # no CUPTI: fall back to events
-            log("    the profiler saw no device kernels: times below are "
-                "CUDA-event times of back-to-back calls")
-            dev = host
-        bound, bound_by = logits_bound(B, L, D, TH, dt)
+        torch.testing.assert_close(sk.scores(x, w), sk.fast_scores(x, w),
+                                   rtol=SCORES_RTOL, atol=SCORES_ATOL)
+        errs[name, dt] = err
         log(f"  logits {name} B={B} L={L} D={D} TH={TH} {dt}: max|err| "
-            f"{err:.3e} (rtol {LOGITS_RTOL}, atol {LOGITS_ATOL}); bound "
-            f"{bound * 1e3:.3f} us ({bound_by})")
-        for k in fns:
-            log(f"    {k}: device {dev[k] * 1e3:.2f} us, per call in a "
-                f"back-to-back loop {host[k] * 1e3:.2f} us")
-        ms, plain_ms, lib_ms = (dev["kernel"], dev["plain"],
-                                dev["torch.matmul"])
-        if name != "ragged":
-            shapes.append({"case": name, "shape": [B, L, D, TH], "dtype": dt,
-                           "max_abs_err": err, "ms": ms,
-                           "plain_ms": plain_ms, "bound_ms": bound,
-                           "bound_by": bound_by, "library_ms": lib_ms})
-        if main_entry is None:
-            main_entry = {
-                "name": "score_logits", "route": "cuda",
-                "source": "ips_tpu_torch/csrc/score_logits.cu",
-                "replaces": "ips_tpu/ops/score_kernel.py:88",
-                "launches": None, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound,
-                "bound_by": bound_by, "library_ms": lib_ms}
+            f"{err:.3e} (rtol {LOGITS_RTOL}, atol {LOGITS_ATOL}); scores "
+            "match the plain epilogue")
 
     # masked scores: row 0 fully masked (must be uniform), row 1 ragged
     B, L, D, TH = 16, 200, 128, 32
@@ -402,8 +457,24 @@ def phase_kernels(torch, np, device):
         raise AssertionError("padded rows of a slide took softmax mass")
     log(f"  masked camelyon scores (1, {L}) with {n_valid} valid rows: "
         "match plain; padded rows take no mass")
+    times = kernel_times()
+    shapes = []
+    for name, B, L, D, TH, dt in LOGITS_CASES:
+        bound, bound_by = logits_bound(B, L, D, TH, dt)
+        log(f"  timed logits {name} ({B}, {L}, {D})x({D}, {TH}) {dt}:")
+        shapes.append(dict(
+            {"case": name, "shape": [B, L, D, TH], "dtype": dt,
+             "max_abs_err": errs[name, dt], "bound_ms": bound,
+             "bound_by": bound_by},
+            **timing_fields(times["score_logits", name, dt], bound)))
+    main_entry = dict(
+        {"name": "score_logits", "route": "cuda",
+         "source": "ips_tpu_torch/csrc/score_logits.cu",
+         "replaces": "ips_tpu/ops/score_kernel.py:88", "launches": None},
+        **{k: v for k, v in shapes[0].items()
+           if k not in ("case", "shape", "dtype")})
     main_entry["shapes"] = shapes
-    return main_entry
+    return main_entry, times
 
 
 def make_patches(np, conf, seed=SEED + 1):
@@ -660,11 +731,28 @@ def _category(name: str) -> str:
 def breakdown(torch, request, wall_s, what="request"):
     """Device time of one profiled call of ``request``, by kernel
     category; the idle share is against the unprofiled steady time.
-    Returns the device's busy ms (None if the profiler saw nothing)."""
-    from ips_tpu_torch.utils.timing import device_kernels
-    kernels = device_kernels(request)
-    if not kernels:
-        log("  breakdown: the profiler saw no device kernels")
+    A profile is whole only if it holds one score_logits record for each
+    launch the wrapper counted in it (a profile can lose kernel records);
+    one that is not is taken again, up to ``PROFILE_TRIES`` in all.
+    Returns the device's busy ms, None if the profiler saw nothing or no
+    whole profile."""
+    from ips_tpu_torch.ops import score_kernel as sk
+    from ips_tpu_torch.utils.timing import PROFILE_TRIES, device_kernels
+    for _ in range(PROFILE_TRIES):
+        before = sk.logits.launches
+        kernels = device_kernels(request)
+        launched = sk.logits.launches - before
+        if not kernels:
+            log("  breakdown: the profiler saw no device kernels")
+            return None
+        seen = sum(n for name, (_, n) in kernels.items()
+                   if _category(name) == "score_logits kernel")
+        if seen == launched:
+            break
+        log(f"  breakdown: refused a profile with {seen} score_logits "
+            f"records of {launched} launches")
+    else:
+        log("  breakdown: no whole profile; device busy not measured")
         return None
     busy_ms = sum(us for us, _ in kernels.values()) / 1e3
     cats = {}
@@ -893,6 +981,26 @@ def check_metrics_rows(np, conf, rows, epochs):
                                      f"{t.name}: loss {loss}, {metric}")
 
 
+def check_restore(torch, trainer, conf, ckpt, epoch):
+    """The checkpoint of ``epoch`` under ``ckpt`` restores into a fresh
+    trainer (another seed) bitwise: weights, AdamW's state and step."""
+    from ips_tpu_torch.train.steps import IPSTrainer
+    from ips_tpu_torch.utils.checkpoint import CheckpointManager
+    fresh = IPSTrainer(conf.replace(seed=conf.seed + 1))
+    if CheckpointManager(ckpt).restore(fresh) != epoch:
+        raise AssertionError("restored the wrong epoch")
+    live, back = trainer.model.state_dict(), fresh.model.state_dict()
+    bad = [k for k in live if not torch.equal(live[k], back[k])]
+    s_live, s_back = (trainer.opt.state_dict()["state"],
+                      fresh.opt.state_dict()["state"])
+    bad += [f"opt {i}.{k}" for i in s_live for k in s_live[i]
+            if not torch.equal(s_live[i][k], s_back[i][k])]
+    if bad or fresh.step != trainer.step:
+        raise AssertionError(f"checkpoint round trip differs: {bad[:5]}")
+    log(f"  checkpoint epoch {epoch}: {len(live)} tensors and AdamW's "
+        "state restored bitwise into a fresh trainer")
+
+
 def phase_driver(torch, np, device, card):
     """The training driver at the shipped config; returns score_logits'
     launches in its 2-epoch run."""
@@ -905,8 +1013,6 @@ def phase_driver(torch, np, device, card):
     from ips_tpu_torch.ops.densify import densify_patches
     from ips_tpu_torch.train.loop import train_one_epoch
     from ips_tpu_torch.train.metrics import MetricsLogger
-    from ips_tpu_torch.train.steps import IPSTrainer
-    from ips_tpu_torch.utils.checkpoint import CheckpointManager
     from ips_tpu_torch.utils.timing import bound_ms, device_ms
     tmp = tempfile.mkdtemp(prefix="ips_tpu_torch_driver_")
     try:
@@ -991,19 +1097,7 @@ def phase_driver(torch, np, device, card):
             + f" (bound {dens_bound:.4f} ms, {dens_by})")
 
         # (c) the last checkpoint into a fresh trainer, bitwise
-        fresh = IPSTrainer(conf.replace(seed=conf.seed + 1))
-        if CheckpointManager(ckpt).restore(fresh) != DRIVER_EPOCHS:
-            raise AssertionError("restored the wrong epoch")
-        live, back = trainer.model.state_dict(), fresh.model.state_dict()
-        bad = [k for k in live if not torch.equal(live[k], back[k])]
-        s_live, s_back = (trainer.opt.state_dict()["state"],
-                          fresh.opt.state_dict()["state"])
-        bad += [f"opt {i}.{k}" for i in s_live for k in s_live[i]
-                if not torch.equal(s_live[i][k], s_back[i][k])]
-        if bad or fresh.step != trainer.step:
-            raise AssertionError(f"checkpoint round trip differs: {bad[:5]}")
-        log(f"  checkpoint epoch {DRIVER_EPOCHS}: {len(live)} tensors and "
-            f"AdamW's state restored bitwise into a fresh trainer")
+        check_restore(torch, trainer, conf, ckpt, DRIVER_EPOCHS)
 
         # (d) resume with one more epoch: only epoch 2 trains (a second
         # JSON config, since key=value overrides need pyyaml)
@@ -1219,13 +1313,10 @@ def phase_camelyon(torch, np, device, card):
                 f"{(time.perf_counter() - t0) / steps * 1e3:.2f} ms per "
                 f"optimizer step (synchronised); card {card}")
         trainer.conf = conf
-        before = sk.logits.launches
         busy = breakdown(torch, lambda: train_one_epoch(
             trainer, loader, 1, MetricsLogger(conf.task_list), conf),
             epoch_s[1], what=f"camelyon epoch of {steps} steps "
             "(epoch 1's wall)")
-        log(f"  profiled epoch: {sk.logits.launches - before} score_logits "
-            "launches")
         if busy is not None:
             log(f"  camelyon step: device busy {busy / steps:.2f} ms of "
                 f"{epoch_s[1] / steps * 1e3:.2f} ms (idle share "
@@ -1414,15 +1505,155 @@ def phase_camelyon_e2e(torch, np, device, card):
         log(f"  loader alone (host, {conf.n_worker} threads, one slide at a "
             f"time): {(time.perf_counter() - t0) * 1e3:.2f} ms for "
             f"{n_batches} padded uint8 slides")
-        before = sk.logits.launches
         busy = breakdown(torch, lambda: train_one_epoch(
             trainer, loader, 1, MetricsLogger(conf.task_list), conf),
             epoch_s[1], what=f"camelyon_e2e epoch of {steps} step(s) "
             "(epoch 1's wall)")
-        log(f"  profiled epoch: {sk.logits.launches - before} score_logits "
-            "launches")
         if busy is not None:
             log(f"  camelyon_e2e step: device busy {busy / steps:.2f} ms of "
+                f"{epoch_s[1] / steps * 1e3:.2f} ms (idle share "
+                f"{1 - busy / (epoch_s[1] * 1e3):.3f}); card {card}")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def traffic_corpus(conf, n_per_set=TRAFFIC_IMAGES):
+    """Phase traffic's corpus, which scripts/traffic_learning.py makes at
+    a larger count: both STS sets in memory at 1200x1600 from the port's
+    synthetic generator (the images before JPEG), read as the train and
+    test ``TrafficSigns`` of ``conf``."""
+    from ips_tpu_torch.data.traffic import TrafficSigns
+    from ips_tpu_torch.data.traffic_synth import synth_sts_sets
+    sets = synth_sts_sets(n_per_set, *TRAFFIC_HW, seed=SEED)
+    return (TrafficSigns(conf, True, images=sets),
+            TrafficSigns(conf, False, images=sets))
+
+
+def phase_traffic(torch, np, device, card):
+    """The traffic-sign path through the driver at the full width of
+    config/traffic_config.yml; returns score_logits' launches in its
+    run."""
+    from ips_tpu_torch import main as driver
+    from ips_tpu_torch.config import config_from_dict
+    from ips_tpu_torch.infer import Predictor
+    from ips_tpu_torch.ops import score_kernel as sk
+    from ips_tpu_torch.train.loop import train_one_epoch
+    from ips_tpu_torch.train.metrics import MetricsLogger
+    tmp = tempfile.mkdtemp(prefix="ips_tpu_torch_traffic_")
+    try:
+        metrics = os.path.join(tmp, "metrics.jsonl")
+        ckpt = os.path.join(tmp, "ckpt")
+        conf = config_from_dict(dict(
+            TRAFFIC_CONFIG, n_epoch=TRAFFIC_EPOCHS, n_epoch_warmup=1,
+            metrics_path=metrics, checkpoint_dir=ckpt))
+        t0 = time.perf_counter()
+        train_ds, test_ds = traffic_corpus(conf)
+        n_train, n_test = len(train_ds), len(test_ds)
+        steps, evals = (math.ceil(n / conf.B) for n in (n_train, n_test))
+        n_iter = math.ceil((conf.N - conf.M) / conf.I)
+        classes = [dict(Counter(c for _, c in ds._data))
+                   for ds in (train_ds, test_ds)]
+        log(f"  corpus: {TRAFFIC_IMAGES} images a set at "
+            f"{TRAFFIC_HW[0]}x{TRAFFIC_HW[1]} RGB uint8 in memory, made in "
+            f"{time.perf_counter() - t0:.2f} s; after the filter {n_train} "
+            f"train and {n_test} test images (classes {classes}): {steps} "
+            f"train and {evals} eval batches of B = {conf.B}, the last of "
+            "each padded")
+        if n_train % conf.B == 0 or n_test % conf.B == 0 or steps < 2:
+            raise AssertionError("the corpus misses a padded tail batch")
+        log(f"  config: N={conf.N} patches of {conf.patch_size} x "
+            f"{conf.n_chan_in}, M={conf.M}, I={conf.I} ({n_iter} chunks, "
+            f"{conf.M + n_iter * conf.I - conf.N} padded slots), "
+            f"{conf.enc_type}/{conf.n_res_blocks} blocks, D={conf.D}, "
+            f"H={conf.H}, D_inner={conf.D_inner}, {conf.compute_dtype}, "
+            f"fp32 host normalization, {conf.n_worker} loader threads")
+
+        # (a) two epochs through the driver, on the card by default
+        trainer, wall, launches, eval_launches, peak = run_driver(
+            torch, conf, "traffic", (train_ds, test_ds))
+        train_launches = launches - sum(eval_launches)
+        if (train_launches != n_iter * steps * TRAFFIC_EPOCHS
+                or eval_launches != [n_iter * evals] * TRAFFIC_EPOCHS):
+            raise AssertionError(
+                f"score kernel launched {train_launches} times in training "
+                f"and {eval_launches} in eval, expected "
+                f"{n_iter * steps * TRAFFIC_EPOCHS} and {n_iter * evals} "
+                "an epoch")
+        if trainer.step != TRAFFIC_EPOCHS * steps:
+            raise AssertionError(f"trainer step {trainer.step}")
+        rows = metrics_rows(metrics)
+        check_metrics_rows(np, conf, rows, range(TRAFFIC_EPOCHS))
+        epoch_s = [r["train_seconds"] for r in rows if r["split"] == "train"]
+        log(f"  traffic driver: {TRAFFIC_EPOCHS} epochs of {steps} steps "
+            f"and {evals} eval batches in {wall:.2f} s; {launches} "
+            f"score_logits launches at ({conf.B}, {conf.M + conf.I}, "
+            f"{conf.D})x({conf.D}, {conf.n_token * conf.H}) "
+            f"({launches / (TRAFFIC_EPOCHS * (steps + evals)):g} per step "
+            f"and per eval batch); trainer step {trainer.step}")
+        log(f"  traffic driver: epoch wall {epoch_s[0]:.4f} s (epoch 0, "
+            f"warm-up), {epoch_s[1]:.4f} s (epoch 1): "
+            f"{epoch_s[1] / steps * 1e3:.2f} ms per optimizer step, loader "
+            f"and copies included; peak memory {peak / 2**20:.1f} MiB "
+            f"(max_memory_allocated); card {card}")
+        for row in rows:
+            t = conf.task_list[0]
+            log(f"    {row['split']} epoch {row['epoch']}: {t.name} loss "
+                f"{row[f'{t.name}_loss']:.4f}, {t.metric} "
+                f"{row[f'{t.name}_{t.metric}']:.3f}")
+
+        # (b) the checkpoint the run saved at its end
+        check_restore(torch, trainer, conf, ckpt, TRAFFIC_EPOCHS)
+
+        # (c) one augmented train batch: the kernel's selection and
+        # predictions, and the same selection with the plain scorer
+        loader, _ = driver.build_loaders(conf, train_ds, test_ds)
+        batch = next(iter(loader))
+        pred = Predictor(conf, trainer=trainer)
+        before = sk.logits.launches
+        out = pred.predict(batch["input"])
+        if sk.logits.launches - before != n_iter:
+            raise AssertionError("a batch did not take one launch a chunk")
+        p = out["sign"]
+        if p.shape != (conf.B, conf.n_class) or not np.isfinite(p).all():
+            raise AssertionError(f"bad predictions {p.shape}")
+        np.testing.assert_allclose(p.sum(-1), 1.0, rtol=0, atol=1e-5)
+        idx = out["selected_idx"]
+        x = torch.from_numpy(batch["input"]).to(device)
+        mask = torch.ones((conf.B, conf.N), dtype=torch.bool, device=device)
+        log(f"  one train batch {tuple(x.shape)} {x.dtype} "
+            f"({batch['input'].nbytes / 1e6:.1f} MB): finite predictions; "
+            f"kernel selection of {idx.shape[1]}")
+        check_plain_selection(torch, np, trainer.model, conf,
+                              trainer.pos_table, x, mask, idx)
+        del pred, x, mask, batch
+
+        # (d) where an epoch's time goes: a train item's host work step by
+        # step, the loader alone, then a profiled train epoch
+        t_aug = t_patch = 0.0
+        for i in range(TRAFFIC_HOST_ITEMS):
+            img = train_ds._load_image(train_ds._data[i][0])
+            t0 = time.perf_counter()
+            img = train_ds.augment(img, i)
+            t1 = time.perf_counter()
+            train_ds.to_patches(img)
+            t_aug += t1 - t0
+            t_patch += time.perf_counter() - t1
+        log(f"  one train item on the host (one thread, mean of "
+            f"{TRAFFIC_HOST_ITEMS}): augment (color jitter, shift) "
+            f"{t_aug / TRAFFIC_HOST_ITEMS:.4f} s, normalize+patchify "
+            f"{t_patch / TRAFFIC_HOST_ITEMS:.4f} s")
+        t0 = time.perf_counter()
+        n_batches = sum(1 for _ in loader)
+        log(f"  loader alone (host, {conf.n_worker} threads): "
+            f"{(time.perf_counter() - t0) * 1e3:.2f} ms for {n_batches} "
+            "augmented fp32 batches")
+        busy = breakdown(torch, lambda: train_one_epoch(
+            trainer, loader, 1, MetricsLogger(conf.task_list), conf),
+            epoch_s[1], what=f"traffic epoch of {steps} steps (epoch 1's "
+            "wall)")
+        if busy is not None:
+            log(f"  traffic step: device busy {busy / steps:.2f} ms of "
                 f"{epoch_s[1] / steps * 1e3:.2f} ms (idle share "
                 f"{1 - busy / (epoch_s[1] * 1e3):.3f}); card {card}")
         return launches
@@ -1653,11 +1884,11 @@ def phase_preprocess(torch, np, device, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def phase_conv_probe(torch, np, device, card, pred):
-    """conv_block against its plain version, the main path's own layer1
-    timed at the same shape, then the layer1 probe with the kernel's
-    launches counted; returns the kernel's JSON entry at the unpaired
-    layer1 shape."""
+def phase_conv_probe(torch, np, device, card, pred, times):
+    """conv_block against its plain version, its times from phase
+    kernels' ``times``, the main path's own layer1 timed at the same
+    shape, then the layer1 probe with the kernel's launches counted;
+    returns the kernel's JSON entry at the unpaired layer1 shape."""
     from ips_tpu_torch.ops import conv_block as cb
     from ips_tpu_torch.scripts import probe_conv as pc
     from ips_tpu_torch.scripts.kernel_times import BLOCK_CASES, block_bound
@@ -1689,19 +1920,8 @@ def phase_conv_probe(torch, np, device, card, pred):
             f"{bound * 1e3:.2f} us ({bound_by})")
         if name == "ragged":
             continue
-        cp = pc.cudnn_params(p)
-        fns = {"kernel": lambda: cb.fused_block(x, q),
-               "plain": lambda: cb.plain_fused_block(x, q),
-               "cudnn_conv block": lambda: pc.block_cudnn(x, cp)}
-        dev = {k: device_ms(f, iters=20, warmup=5) for k, f in fns.items()}
-        host = {k: cuda_ms(f, iters=20, warmup=5) for k, f in fns.items()}
-        if None in dev.values():            # no CUPTI: fall back to events
-            log("    the profiler saw no device kernels: times below are "
-                "CUDA-event times of back-to-back calls")
-            dev = host
-        for k in fns:
-            log(f"    {k}: device {dev[k] * 1e3:.2f} us, per call in a "
-                f"back-to-back loop {host[k] * 1e3:.2f} us")
+        # library_ms: the block by cuDNN convs, its epilogue in PyTorch
+        fields = timing_fields(times["conv_block", name, "bfloat16"], bound)
         if name == "layer1":
             # the main path's layer1 as the encoder runs it: fp32
             # activations in, bf16 cuDNN convs, fp32 BatchNorm and ReLU
@@ -1711,22 +1931,21 @@ def phase_conv_probe(torch, np, device, card, pred):
             def encoder_layer1():
                 with torch.inference_mode():
                     return enc.layer1_block1(enc.layer1_block0(x32))
-            enc_ms = device_ms(encoder_layer1, iters=20, warmup=5)
+            refused = []
+            enc_ms = device_ms(encoder_layer1, iters=20, warmup=5,
+                               rejected=refused)
             enc_ev = cuda_ms(encoder_layer1, iters=20, warmup=5)
             log("    main path's encoder layer1 (two blocks): device "
-                + ("not measured" if enc_ms is None
-                   else f"{enc_ms * 1e3:.2f} us")
+                + (f"not measured ({len(refused)} profiles refused)"
+                   if enc_ms is None else f"{enc_ms * 1e3:.2f} us")
                 + f", per call in a back-to-back loop {enc_ev * 1e3:.2f} us")
         if entry is None:
-            entry = {
+            entry = dict({
                 "name": "conv_block", "route": "cuda",
                 "source": "ips_tpu_torch/csrc/conv_block.cu",
                 "replaces": "scripts/probe_conv.py:177",
-                "launches": None, "max_abs_err": err, "ms": dev["kernel"],
-                "plain_ms": dev["plain"], "bound_ms": bound,
-                "bound_by": bound_by,
-                "library_ms": dev["cudnn_conv block"],
-                "shape": [n, s, s, c]}
+                "launches": None, "max_abs_err": err, "bound_ms": bound,
+                "bound_by": bound_by, "shape": [n, s, s, c]}, **fields)
 
     # the probe at its real shape: the path whose launches are counted
     cb.fused_block.launches = 0
@@ -1766,7 +1985,7 @@ def main() -> int:
     with Phase("build"):
         phase_build()
     with Phase("kernels"):
-        entry = phase_kernels(torch, np, device)
+        entry, times = phase_kernels(torch, np, device)
     with Phase("predict"):
         pred, patches, launches = phase_predict(torch, np, device, card)
     with Phase("train"):
@@ -1779,16 +1998,20 @@ def main() -> int:
         camelyon_launches = phase_camelyon(torch, np, device, card)
     with Phase("camelyon_e2e"):
         e2e_launches = phase_camelyon_e2e(torch, np, device, card)
+    with Phase("traffic"):
+        traffic_launches = phase_traffic(torch, np, device, card)
     entry["launches_by_path"] = {"predict": launches,
                                  "train": train_launches,
                                  "driver": driver_launches,
                                  "camelyon": camelyon_launches,
-                                 "camelyon_e2e": e2e_launches}
+                                 "camelyon_e2e": e2e_launches,
+                                 "traffic": traffic_launches}
     entry["launches"] = sum(entry["launches_by_path"].values())
     with Phase("preprocess"):
         phase_preprocess(torch, np, device, card)
     with Phase("conv_probe"):
-        conv_entry = phase_conv_probe(torch, np, device, card, pred)
+        conv_entry = phase_conv_probe(torch, np, device, card, pred,
+                                      times)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [entry, conv_entry]}), flush=True)
     print(json.dumps({"ok": True, "device": {

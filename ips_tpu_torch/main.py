@@ -2,6 +2,8 @@
 
     python -m ips_tpu_torch.main --dataset mnist \\
         --config config/mnist_config.yml data_dir=<dir> B=8 n_epoch=5
+    python -m ips_tpu_torch.main --dataset traffic \\
+        --config config/traffic_config.yml data_dir=<dir> ...
     python -m ips_tpu_torch.main --dataset camelyon \\
         --config config/camelyon_config.yml data_dir=<dir> ...
     python -m ips_tpu_torch.main --dataset camelyon_e2e \\
@@ -46,9 +48,9 @@ def build_datasets(conf: Config, dataset: str):
         return (MegapixelMNIST(conf, train=True),
                 MegapixelMNIST(conf, train=False))
     if dataset == "traffic":
-        raise NotImplementedError(
-            "the traffic-sign dataset is not ported yet: ROADMAP.md queue "
-            "1, item 8 (traffic data)")
+        from ips_tpu_torch.data.traffic import TrafficSigns
+        return (TrafficSigns(conf, train=True),
+                TrafficSigns(conf, train=False))
     if dataset == "camelyon":
         from ips_tpu_torch.data.camelyon.dataset import CamelyonFeatures
         return (CamelyonFeatures(conf, train=True),
@@ -99,8 +101,9 @@ def run(conf: Config, dataset: str,
         datasets: Optional[Tuple[Any, Any]] = None):
     """Train ``conf.n_epoch`` epochs with an eval after each; returns
     (trainer, train logger, test logger). ``datasets`` (train, test)
-    replaces the ones ``dataset`` names, e.g. camelyon slides held in
-    memory (``CamelyonFeatures(conf, slides=...)``, or
+    replaces the ones ``dataset`` names, e.g. images or slides held in
+    memory (``TrafficSigns(conf, images=...)`` for traffic,
+    ``CamelyonFeatures(conf, slides=...)``, or
     ``CamelyonPatches(conf, slides=...)`` for camelyon_e2e)."""
     check_ported_schedule(conf)
     np.random.seed(conf.seed)

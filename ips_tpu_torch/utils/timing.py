@@ -6,13 +6,15 @@ The timers need a CUDA device; a time from them is a device time.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# profiles device_ms takes of one function before it gives up
+PROFILE_TRIES = 3
 
 
 def bound_ms(nbytes: float, flops: float, dtype_name: str
@@ -64,15 +66,29 @@ def device_kernels(fn: Callable[[], object], iters: int = 1
 
 
 def device_ms(fn: Callable[[], object], iters: int = 50,
-              warmup: int = 20) -> Optional[float]:
+              warmup: int = 20,
+              rejected: Optional[List[Dict[str, int]]] = None
+              ) -> Optional[float]:
     """Device time of one call of ``fn`` in ms: the summed durations of the
     kernels it launches (gaps between them excluded), from the profiler.
-    Inputs stay in L2 where they fit. None if the profiler saw no device
-    event."""
+    Inputs stay in L2 where they fit.
+
+    ``fn`` launches each of its kernels a fixed number of times a call,
+    so in a whole profile of ``iters`` calls every kernel's count is a
+    multiple of ``iters``. A profile where one is not has lost kernel
+    records (on an H100, profiles late in a long process lost 18-19
+    records each, 18 of 20 for one kernel), and its sum is not this
+    function's time: it is taken again, up to ``PROFILE_TRIES`` times in
+    all, and its counts ({kernel name: count}) are appended to
+    ``rejected`` when that list is given. None if the profiler saw no
+    device event, or no whole profile."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    kernels = device_kernels(fn, iters)
-    if not kernels:
-        return None
-    return sum(us for us, _ in kernels.values()) / iters / 1e3
+    for _ in range(PROFILE_TRIES):
+        kernels = device_kernels(fn, iters)
+        if kernels and all(n % iters == 0 for _, n in kernels.values()):
+            return sum(us for us, _ in kernels.values()) / iters / 1e3
+        if rejected is not None:
+            rejected.append({k: n for k, (_, n) in kernels.items()})
+    return None

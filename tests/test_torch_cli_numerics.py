@@ -19,6 +19,7 @@ CLIS = {
     "ips_tpu_torch.main": ["--no-such-flag"],
     "ips_tpu_torch.infer": ["--no-such-flag"],
     "ips_tpu_torch.data.mnist": ["--no-such-flag"],
+    "ips_tpu_torch.data.traffic_synth": ["--no-such-flag"],
     "ips_tpu_torch.data.camelyon.synth": ["--no-such-flag"],
     "ips_tpu_torch.data.camelyon.otsu": ["--no-such-flag"],
     "ips_tpu_torch.data.camelyon.foreground": ["--no-such-flag"],
@@ -27,6 +28,7 @@ CLIS = {
     "ips_tpu_torch.scripts.probe_conv": ["--no-such-flag"],
     "ips_tpu_torch.scripts.step_memory": ["--no-such-flag"],
     "ips_tpu_torch.scripts.e2e_learning": ["--no-such-flag"],
+    "ips_tpu_torch.scripts.traffic_learning": ["--no-such-flag"],
     "ips_tpu_torch.scripts.kernel_times": None,
     "ips_tpu_torch.scripts.train_parity": None,
 }

@@ -43,6 +43,14 @@ def test_smoke_literal_equals_camelyon_e2e_yaml():
         load_config(path)
 
 
+def test_smoke_literal_equals_traffic_yaml():
+    path = os.path.join(REPO, "config", "traffic_config.yml")
+    with open(path) as f:
+        assert _smoke_module().TRAFFIC_CONFIG == yaml.safe_load(f)
+    assert config_from_dict(_smoke_module().TRAFFIC_CONFIG) == \
+        load_config(path)
+
+
 @pytest.mark.parametrize("name", ["mnist_config.yml", "traffic_config.yml",
                                   "camelyon_config.yml",
                                   "camelyon_e2e_config.yml"])

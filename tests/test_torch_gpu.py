@@ -33,7 +33,7 @@ def _inputs(device, B, L, D, TH, dtype, seed=0):
 @pytest.mark.parametrize("B,L,D,TH,dtype", [
     (16, 200, 128, 32, torch.float32), (16, 200, 128, 32, torch.bfloat16),
     (4, 1037, 128, 32, torch.float32), (1, 10000, 512, 8, torch.bfloat16),
-    (1, 10000, 512, 8, torch.float32),
+    (1, 10000, 512, 8, torch.float32), (16, 42, 512, 8, torch.float32),
     (3, 33, 70, 64, torch.float32), (2, 1, 5, 1, torch.float32)])
 def test_kernel_matches_plain(cuda, B, L, D, TH, dtype):
     x, w = _inputs(cuda, B, L, D, TH, dtype)
@@ -225,6 +225,48 @@ def test_fused_step_kernel_matches_plain(no_tf32):
     # ceil((40 - 8) / 8) chunks a selection
     assert [r["launches"] for r in results] == [4] * len(tp.SEEDS)
     tp.check(results)
+
+
+def test_traffic_step_kernel_matches_plain(no_tf32):
+    """One fp32 step of the traffic config's model (ResNet-18 with all 4
+    blocks, RGB, a padded tail chunk) scored by the kernel against the
+    same step scored by the plain version on the card and on the CPU, at
+    the same weights, with train_parity's gate-flip rule."""
+    from ips_tpu_torch.scripts import train_parity as tp
+    results = [tp.parity(no_tf32, seed, tp.SMALL_TRAFFIC, blank=0.0)
+               for seed in tp.SEEDS]
+    # ceil((48 - 4) / 8) chunks a selection
+    assert [r["launches"] for r in results] == [6] * len(tp.SEEDS)
+    tp.check(results, tp.FLIP_TOL_4_BLOCKS)
+
+
+def test_traffic_input_norm_on_card_matches_host(no_tf32):
+    """``input_norm: imagenet`` (uint8 patches, normalized on the card)
+    encodes as host-normalized fp32 patches do, to within the uint8
+    rounding of the pixels, at the tolerance of the JAX package's own
+    test (tests/test_traffic.py, atol 5e-2, rtol 1e-2)."""
+    from ips_tpu_torch.config import config_from_dict
+    from ips_tpu_torch.data.traffic import TrafficSigns
+    from ips_tpu_torch.data.traffic_synth import synth_sts_sets
+    from ips_tpu_torch.scripts.train_parity import SMALL_TRAFFIC
+    from ips_tpu_torch.train.steps import IPSTrainer
+    sets = synth_sts_sets(n_per_set=4, height=120, width=160, seed=0)
+    base = dict(SMALL_TRAFFIC, img_size=[120, 160])
+    emb = {}
+    for norm in ("imagenet", "none"):
+        conf = config_from_dict(dict(base, input_norm=norm))
+        # train items: augmented pixels, which uint8 rounds
+        ds = TrafficSigns(conf, train=True, images=sets)
+        x = torch.from_numpy(np.stack([ds[i]["input"] for i in range(2)]))
+        assert x.dtype == (torch.uint8 if norm == "imagenet"
+                           else torch.float32)
+        tr = IPSTrainer(conf)
+        assert tr.device.type == "cuda"
+        with torch.no_grad():
+            emb[norm] = tr.model.encode(x.to(no_tf32)).cpu()
+    assert emb["none"].shape == (2, 48, 512)
+    torch.testing.assert_close(emb["imagenet"], emb["none"], atol=5e-2,
+                               rtol=1e-2)
 
 
 def test_fused_multi_step_launches_kernel_per_chunk(cuda):

@@ -52,7 +52,10 @@ def test_sources_found():
             "ips_tpu_torch/data/camelyon/foreground.py",
             "ips_tpu_torch/data/camelyon/extract_feat.py",
             "ips_tpu_torch/data/camelyon/viz.py",
-            "ips_tpu_torch/scripts/e2e_learning.py"} <= rel
+            "ips_tpu_torch/scripts/e2e_learning.py",
+            "ips_tpu_torch/data/traffic.py",
+            "ips_tpu_torch/data/traffic_synth.py",
+            "ips_tpu_torch/scripts/traffic_learning.py"} <= rel
 
 
 @pytest.mark.parametrize("path", SOURCES,

@@ -112,14 +112,19 @@ class Recorder:
         self.logger.update = record
 
 
-def run_epoch(side, trainer, conf, data_conf=None):
-    """One train epoch then one eval pass over datasets made from
-    ``data_conf`` (default ``conf``); (train, test) recorders."""
+MNIST = {"jax": JMNIST, "torch": MegapixelMNIST}
+
+
+def run_epoch(side, trainer, conf, data_conf=None, dataset=MNIST):
+    """One train epoch then one eval pass over datasets of class
+    ``dataset[side]`` made from ``data_conf`` (default ``conf``); (train,
+    test) recorders."""
+    M = dataset[side]
     if side == "jax":
-        M, L, Log, train, ev = JMNIST, JLoader, JLogger, j_train, j_evaluate
+        L, Log, train, ev = JLoader, JLogger, j_train, j_evaluate
     else:
-        M, L, Log, train, ev = (MegapixelMNIST, DataLoader, MetricsLogger,
-                                train_one_epoch, evaluate)
+        L, Log, train, ev = (DataLoader, MetricsLogger, train_one_epoch,
+                             evaluate)
     data_conf = data_conf or conf
     loader = L(M(data_conf, train=True), batch_size=conf.B_seq, shuffle=True,
                seed=conf.seed)
@@ -183,17 +188,42 @@ def assert_state_match(port, state, initial):
         assert d < bound, f"{k}: update relative distance {d:.3e}"
 
 
-def run_both(data_dir, jax_trainer, data=None, **over):
+def assert_first_step(port, state, initial):
+    """Each parameter's update after one optimizer step within
+    STEP1_UPDATE_DIST of JAX's, leaving out the elements whose step-1
+    gradient (optax's first moment / 0.1) is nonzero but below
+    GRAD_ROUNDING of its tensor's RMS, which AdamW may step either way;
+    they must be under 1% of each tensor."""
+    mu = weights.flatten_variables(state.opt_state.inner_state[0].mu)
+    keep = {}
+    for k, v in mu.items():
+        g = np.abs(np.asarray(v, np.float64)) / 0.1
+        keep[k] = (g == 0) | (g > GRAD_ROUNDING * np.sqrt(np.mean(g ** 2)))
+        assert (~keep[k]).mean() < 0.01, k
+    dists = update_dists(port, state, initial, keep)
+    assert set(keep) < set(dists)
+    for k in keep:
+        assert dists[k] < STEP1_UPDATE_DIST, \
+            f"{k}: update relative distance {dists[k]:.3e}"
+
+
+def run_both(data_dir, jax_trainer, data=None, make_conf=None,
+             dataset=MNIST, **over):
     """One epoch and one eval pass in each package from the same state;
-    ``data`` overrides the config the datasets are made from."""
+    ``data`` overrides the config the datasets are made from. The config
+    is ``make_conf(data_dir, **over)`` (default ``loop_conf``), the
+    datasets of classes ``dataset`` (default megapixel MNIST)."""
+    make_conf = make_conf or loop_conf
     jtr, initial = jax_trainer
-    c = loop_conf(data_dir, **over)
-    dc = loop_conf(data_dir, **dict(over, **data)) if data else None
+    c = make_conf(data_dir, **over)
+    dc = make_conf(data_dir, **dict(over, **data)) if data else None
     jtr.state = initial
-    jax_out = run_epoch("jax", jtr, j_config(c), dc and j_config(dc))
+    jax_out = run_epoch("jax", jtr, j_config(c), dc and j_config(dc),
+                        dataset)
     port = IPSTrainer(t_config(c), device="cpu")
     weights.load_jax_train_state(port, initial)
-    port_out = run_epoch("torch", port, t_config(c), dc and t_config(dc))
+    port_out = run_epoch("torch", port, t_config(c), dc and t_config(dc),
+                         dataset)
     return port, port_out, jtr.state, jax_out
 
 

@@ -12,15 +12,12 @@ The first optimizer step alone (4 train images) is held closer, per
 tensor, on the three kinds of step: sparse, dense and assembled.
 """
 
-import numpy as np
 import pytest
 
 from ips_tpu.data.mnist import generate_megapixel_mnist
-from ips_tpu_torch import weights
-from test_torch_loop import (GRAD_ROUNDING, STEP1_UPDATE_DIST,  # noqa: F401
+from test_torch_loop import (assert_first_step,  # noqa: F401
                              assert_runs_match, assert_state_match, data_dir,
-                             few_torch_threads, jax_trainer, run_both,
-                             update_dists)
+                             few_torch_threads, jax_trainer, run_both)
 
 
 @pytest.mark.parametrize("over", [
@@ -51,22 +48,10 @@ def one_step_dir(tmp_path_factory):
 ], ids=["sparse", "dense", "assembled"])
 def test_first_step_matches_jax(one_step_dir, jax_trainer, over):
     """Each parameter's update after one optimizer step within
-    STEP1_UPDATE_DIST of JAX's, leaving out the elements whose step-1
-    gradient (optax's first moment / 0.1) is nonzero but below
-    GRAD_ROUNDING of its tensor's RMS, which AdamW may step either way;
-    they are under 1% of each tensor (measured 0.05%)."""
+    STEP1_UPDATE_DIST of JAX's (``assert_first_step``; the elements left
+    out are under 1% of each tensor, measured 0.05%)."""
     port, port_out, state, jax_out = run_both(one_step_dir, jax_trainer,
                                               **over)
     assert_runs_match(port_out, jax_out, 1)
     assert port.step == int(state.step) == 1
-    mu = weights.flatten_variables(state.opt_state.inner_state[0].mu)
-    keep = {}
-    for k, v in mu.items():
-        g = np.abs(np.asarray(v, np.float64)) / 0.1
-        keep[k] = (g == 0) | (g > GRAD_ROUNDING * np.sqrt(np.mean(g ** 2)))
-        assert (~keep[k]).mean() < 0.01, k
-    dists = update_dists(port, state, jax_trainer[1], keep)
-    assert set(keep) < set(dists)
-    for k in keep:
-        assert dists[k] < STEP1_UPDATE_DIST, \
-            f"{k}: update relative distance {dists[k]:.3e}"
+    assert_first_step(port, state, jax_trainer[1])

@@ -1,8 +1,8 @@
 """The port's training CLI (``ips_tpu_torch.main``) on the CPU: two epochs
 with checkpoints, metrics lines and a profiler trace, a resumed run that
 repeats an unbroken one exactly, the checkpoint manager, the efficiency
-tracker, streaming, the datasets that are not ported yet and the
-overrides."""
+tracker, streaming, the camelyon datasets and the overrides (the
+traffic CLI is in test_torch_traffic.py)."""
 
 import json
 import os
@@ -120,13 +120,6 @@ def test_efficiency_tracker_reports_and_stops(config_path, capsys):
     assert e.value.code == 0
     out = capsys.readouterr().out
     assert "time: " in out and "avg. time: " in out
-
-
-@pytest.mark.parametrize("dataset,item", [("traffic", "item 8")])
-def test_unported_datasets_raise(config_path, dataset, item):
-    with pytest.raises(NotImplementedError, match=item):
-        main(["--dataset", dataset, "--config", config_path, "--device",
-              "cpu"])
 
 
 def test_camelyon_dataset_builds(tmp_path):

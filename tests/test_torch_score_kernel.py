@@ -138,10 +138,11 @@ def test_kernel_times_needs_a_card(monkeypatch, capsys):
 @pytest.mark.parametrize("case,want_us,by", [
     (("score_logits", 16, 200, 128, 32, "float32"), 0.616, "bytes"),
     (("score_logits", 1, 10000, 512, 8, "bfloat16"), 3.155, "bytes"),
+    (("score_logits", 16, 42, 512, 8, "float32"), 0.422, "bytes"),
     (("conv_block", 1600, 13, 64), 40.32, "operations"),
     (("conv_block", 1600, 7, 128), 46.76, "operations")],
-    ids=["logits_mnist", "logits_camelyon", "block_layer1",
-         "block_layer2"])
+    ids=["logits_mnist", "logits_camelyon", "logits_traffic",
+         "block_layer1", "block_layer2"])
 def test_kernel_bounds(case, want_us, by):
     """The least times the timing script and chip_smoke.py report, at the
     paths' shapes: H100 data-sheet rates (3.35 TB/s, 67 TFLOP/s fp32, 989
@@ -152,3 +153,25 @@ def test_kernel_bounds(case, want_us, by):
     ms, got_by = fn(*case[1:])
     assert got_by == by
     assert ms * 1e3 == pytest.approx(want_us, abs=5e-3)
+
+
+def test_device_ms_refuses_partial_profiles(monkeypatch):
+    """A profile in which a kernel ran a number of times that is not a
+    multiple of the calls (a record lost, or another call's caught) is
+    taken again and reported; only a whole one gives the time."""
+    from ips_tpu_torch.utils import timing
+    profiles = iter([{"k": (90.0, 9), "g": (50.0, 10)},
+                     {"k": (110.0, 11), "g": (50.0, 10)},
+                     {"k": (100.0, 10), "g": (40.0, 20)}])
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(timing, "device_kernels",
+                        lambda fn, iters: next(profiles))
+    rejected = []
+    ms = timing.device_ms(lambda: None, iters=10, warmup=0,
+                          rejected=rejected)
+    assert ms == pytest.approx(0.014)
+    assert rejected == [{"k": 9, "g": 10}, {"k": 11, "g": 10}]
+    profiles = iter([{"k": (90.0, 9)}] * timing.PROFILE_TRIES + [{}] *
+                    timing.PROFILE_TRIES)
+    assert timing.device_ms(lambda: None, iters=10, warmup=0) is None
+    assert timing.device_ms(lambda: None, iters=10, warmup=0) is None

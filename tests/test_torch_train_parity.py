@@ -79,3 +79,20 @@ def test_check_refuses(step, case, match):
         results.insert(0, result(step, step, seed=3))
     with pytest.raises(AssertionError, match=match):
         tp.check(results)
+
+
+def test_traffic_config_step_on_cpu():
+    """SMALL_TRAFFIC (ResNet-18 with all 4 blocks, RGB, one softmax task)
+    takes a step with its inputs and passes the check against itself:
+    every ReLU of the encoder's 4 stages and the MLP is recorded and every
+    parameter is held."""
+    conf = tp.config_from_dict(tp.SMALL_TRAFFIC)
+    x, labels, w = tp.make_inputs(conf, 3, blank=0.0)
+    assert x.shape == (4, 48, 20, 20, 3) and set(labels) == {"sign"}
+    s = tp.run_step(conf, (x, labels, w), "cpu")
+    r = tp.compare(s, copy.deepcopy(s))
+    assert r["gate_flips"] == {} and r["n_held"] == r["n_params"]
+    assert r["n_relu"] == 1 + 4 * 2 * 2 + 1 and r["loss"] > 0
+    assert any(k.startswith("encoder.layer4") for k in s["first_use"])
+    tp.check([{**result(s, s), "launches": 6, "n_iter": 6}],
+             tp.FLIP_TOL_4_BLOCKS)
