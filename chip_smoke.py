@@ -88,7 +88,35 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                scorer's, a train item's host time (augment, normalize and
                patchify), ms per step, peak memory and a profiler
                breakdown of one epoch with the device's idle share;
- 11. preprocess — the slide-preprocessing pipeline and pretrained weights
+ 11. hostops — the C++ host library (csrc/hostops.cpp) built with g++ on
+               this machine (build seconds), ``densify_patchify``,
+               ``patchify_dense`` and ``gather_patches`` (float32, into a new
+               array and into a pinned buffer) bitwise against their numpy
+               versions at the MNIST shapes (16 images of 1500x1500, 900
+               patches of 50x50, a chunk of I = 100), host ms of each
+               against numpy's;
+ 12. int8    — int8 selection (``select_dtype: int8``) at the full MNIST
+               width: one select against the plain scorer's int8 selection
+               (near-ties allowed), its device ms against the bf16
+               selection's on the same batch; 4 ``Predictor`` requests (8
+               launches each, finite outputs); the driver on dense input
+               densified on the host by the C++ library (128 + 32 images,
+               2 epochs, the launches the chunks say, finite losses, the
+               checkpoint restored bitwise, ms per step, peak and the
+               device's idle share); one streamed int8 selection of a
+               camelyon_e2e slide at full width (ResNet-50/2 bottleneck
+               blocks, uint8 224x224 tiles) and its peak;
+ 13. export  — the export CLI's ``main`` (ips_tpu_torch/export.py) on
+               the full-width MNIST Predictor on the card with
+               ``--selftest``; the artifact
+               loaded in a fresh process that imports only
+               ``ips_tpu_torch.ops.score_kernel``, 4 requests there (8
+               ``score_logits`` launches each inside the program), its
+               selected indices equal to the live Predictor's and its
+               probabilities within 1e-5; artifact size, load seconds,
+               request latency against the live Predictor; the operator's
+               dispatch against the direct ctypes call;
+ 14. preprocess — the slide-preprocessing pipeline and pretrained weights
                (``ips_tpu_torch.data.camelyon`` synth, otsu, foreground,
                extract_feat; ``models.pretrained``): 4 train and 2 test
                slides of 5600x5600 made in memory from the seed; otsu
@@ -104,7 +132,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                synchronous loop, the first 8 tiles within a stated bf16
                tolerance of the CPU forward; then one evaluation of the
                camelyon feature config on those features;
- 12. conv_probe — the fused BasicBlock kernel against its plain version
+ 15. conv_probe — the fused BasicBlock kernel against its plain version
                at the layer1 shapes (1600, 13, 13, 64), paired
                (800, 13, 13, 128), a ragged one and layer2_block1's
                (1600, 7, 7, 128), timed in phase kernels; the main
@@ -250,6 +278,18 @@ E2E_PEAK_TOL = 64 * 2**20
 TRAFFIC_IMAGES, TRAFFIC_HW, TRAFFIC_EPOCHS = 46, (1200, 1600), 2
 # host time of one train item, averaged over this many items
 TRAFFIC_HOST_ITEMS = 4
+
+# phase hostops: the MNIST dense data path's host functions at the shipped
+# width, 1500x1500 images cut into 900 patches of 50x50, B = 16, and a
+# chunk of I = 100 gathered from a (16, 900, 50, 50, 1) batch
+HOSTOPS_IMAGES = 16
+HOSTOPS_REPEATS = 5
+# phase int8: the streamed camelyon_e2e slide is the second train slide of
+# e2e_corpus (a tumour slide), made alone from the same seed
+E2E_INT8_SLIDE = 1
+
+# phase export: requests of the exported program in a fresh process
+EXPORT_REQUESTS = 4
 
 # phase preprocess: the CAMELYON16 workflow (synth -> otsu -> foreground ->
 # extract_feat -> the feature trainer) on slides of the JAX package's own
@@ -489,16 +529,18 @@ def make_patches(np, conf, seed=SEED + 1):
 
 
 def _plain_select(torch, model, conf, pos_table, x, mask, score, seed,
-                  preencode=False):
+                  preencode=False, encode=None):
     """Eager selection of ``x`` scored by ``score``, in the schedule the
     path runs (``preencode``); with a ``seed``, the config's shuffle from
-    a fresh generator of that seed on x's device."""
+    a fresh generator of that seed on x's device. ``encode`` defaults to
+    the model's."""
     from ips_tpu_torch.ops.selection import ips_select
     gen = (None if seed is None
            else torch.Generator(device=x.device).manual_seed(seed))
     with torch.inference_mode():
-        return ips_select(model.encode, score, x, M=conf.M, I=conf.I,
-                          pos_table=pos_table, mask=mask, generator=gen,
+        return ips_select(encode or model.encode, score, x, M=conf.M,
+                          I=conf.I, pos_table=pos_table, mask=mask,
+                          generator=gen,
                           shuffle=seed is not None and conf.shuffle,
                           shuffle_style=conf.shuffle_style,
                           preencode=preencode,
@@ -570,16 +612,17 @@ def _check_near_tie(report, what):
 
 
 def check_plain_selection(torch, np, model, conf, pos_table, x, mask, idx,
-                          seed=None, preencode=False):
+                          seed=None, preencode=False, encode=None):
     """Selection scored by the plain version on the card, in the same
-    schedule, gives the kernel's indices ``idx``, or parts from them only
-    at a near-tie. With a ``seed``, both shuffle from generators of that
-    seed."""
+    schedule and with the same ``encode`` (the model's by default), gives
+    the kernel's indices ``idx``, or parts from them only at a near-tie.
+    With a ``seed``, both shuffle from generators of that seed."""
     from ips_tpu_torch.ops import score_kernel as sk
+    encode = encode or model.encode
     res = _plain_select(
         torch, model, conf, pos_table, x, mask,
         lambda e, m: sk.fast_scores(e, model.score_weights(), m), seed,
-        preencode)
+        preencode, encode)
     plain_idx = res.mem_idx.cpu().numpy()
     if np.array_equal(plain_idx, idx):
         log("  plain-scorer selection: identical indices")
@@ -588,7 +631,7 @@ def check_plain_selection(torch, np, model, conf, pos_table, x, mask, idx,
     with torch.inference_mode():
         table = _table(torch, model, conf, x) if preencode else None
     embed = ((lambda i: table[rows, i]) if preencode
-             else (lambda i: model.encode(x[rows, i])))
+             else (lambda i: encode(x[rows, i])))
     report = tie_report(
         torch, model, conf, pos_table, x, mask, seed, embed,
         lambda i, e, v: sk.fast_scores(e, model.score_weights(), v))
@@ -1001,14 +1044,27 @@ def check_restore(torch, trainer, conf, ckpt, epoch):
         "state restored bitwise into a fresh trainer")
 
 
+def mnist_store(tmp, n_train, n_test):
+    """A megapixel-MNIST store at 1500x1500 in ``tmp`` (synthetic digits,
+    the seed); returns its directory."""
+    from ips_tpu_torch.data.mnist import generate_megapixel_mnist
+    data = os.path.join(tmp, "mnist")
+    t0 = time.perf_counter()
+    generate_megapixel_mnist(data, n_train=n_train, n_test=n_test,
+                             width=1500, height=1500, n_noise=50, seed=SEED,
+                             digit_source="synthetic")
+    log(f"  generated {n_train} + {n_test} images at 1500x1500 in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return data
+
+
 def phase_driver(torch, np, device, card):
     """The training driver at the shipped config; returns score_logits'
     launches in its 2-epoch run."""
     from ips_tpu_torch import main as driver
     from ips_tpu_torch.config import config_from_dict
     from ips_tpu_torch.data.loader import DataLoader
-    from ips_tpu_torch.data.mnist import (MegapixelMNIST,
-                                          generate_megapixel_mnist)
+    from ips_tpu_torch.data.mnist import MegapixelMNIST
     from ips_tpu_torch.ops import score_kernel as sk
     from ips_tpu_torch.ops.densify import densify_patches
     from ips_tpu_torch.train.loop import train_one_epoch
@@ -1016,15 +1072,9 @@ def phase_driver(torch, np, device, card):
     from ips_tpu_torch.utils.timing import bound_ms, device_ms
     tmp = tempfile.mkdtemp(prefix="ips_tpu_torch_driver_")
     try:
-        data, ckpt = os.path.join(tmp, "mnist"), os.path.join(tmp, "ckpt")
+        data = mnist_store(tmp, DRIVER_TRAIN_IMAGES, DRIVER_TEST_IMAGES)
+        ckpt = os.path.join(tmp, "ckpt")
         metrics = os.path.join(tmp, "metrics.jsonl")
-        t0 = time.perf_counter()
-        generate_megapixel_mnist(data, n_train=DRIVER_TRAIN_IMAGES,
-                                 n_test=DRIVER_TEST_IMAGES, width=1500,
-                                 height=1500, n_noise=50, seed=SEED,
-                                 digit_source="synthetic")
-        log(f"  generated {DRIVER_TRAIN_IMAGES} + {DRIVER_TEST_IMAGES} "
-            f"images at 1500x1500 in {time.perf_counter() - t0:.2f} s")
         conf_d = dict(MNIST_CONFIG, data_dir=data, n_epoch=DRIVER_EPOCHS,
                       n_epoch_warmup=1, checkpoint_dir=ckpt,
                       checkpoint_every=1, metrics_path=metrics)
@@ -1661,6 +1711,388 @@ def phase_traffic(torch, np, device, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def _host_ms(fn, repeats=HOSTOPS_REPEATS):
+    """Median host ms of ``fn()`` over ``repeats`` calls after one."""
+    fn()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def phase_hostops(torch, np, card):
+    """The g++ host library built on this machine, its three functions
+    held bitwise against their numpy versions at the MNIST shapes, and
+    each one's host time against numpy's."""
+    from ips_tpu_torch import native
+    from ips_tpu_torch.utils.cuda_build import build_library, library_path
+    t0 = time.perf_counter()
+    fresh = not os.path.exists(library_path("hostops"))
+    path, _ = build_library("hostops")
+    log(f"  {'built' if fresh else 'found (built earlier)'} "
+        f"{os.path.relpath(path)} with g++ in "
+        f"{time.perf_counter() - t0:.2f} s")
+    tmp = tempfile.mkdtemp(prefix="ips_tpu_torch_hostops_")
+    try:
+        data = mnist_store(tmp, HOSTOPS_IMAGES, 1)
+        samples = np.load(os.path.join(data, "train.npy"),
+                          allow_pickle=True)
+        shape, ps = (1500, 1500, 1), (50, 50)
+
+        def compare(name, fast, plain, what):
+            got, want = fast(), plain()
+            if not np.array_equal(got, want):
+                raise AssertionError(f"{name}: C++ and numpy differ")
+            ms, plain_ms = _host_ms(fast), _host_ms(plain)
+            log(f"  {name} {what}: bitwise equal to numpy; host "
+                f"{ms:.3f} ms, numpy {plain_ms:.3f} ms (median of "
+                f"{HOSTOPS_REPEATS}, one thread; card {card})")
+            return got
+
+        pairs = [s["input"] for s in samples]
+        nnz = [len(i) for i, _ in pairs]
+        batch = compare(
+            "densify_patchify",
+            lambda: np.stack([native.densify_patchify(i, v, shape, ps, ps)
+                              for i, v in pairs]),
+            lambda: np.stack([native.plain_densify_patchify(i, v, shape, ps,
+                                                            ps)
+                              for i, v in pairs]),
+            f"of {len(pairs)} images ({min(nnz)}..{max(nnz)} pixels each) "
+            f"to ({len(pairs)}, 900, 50, 50, 1)")
+        dense = [native.plain_densify_patchify(
+            i, v, shape, (1500, 1500), (1500, 1500))[0] for i, v in pairs]
+        compare("patchify_dense",
+                lambda: np.stack([native.patchify_dense(d, ps, ps)
+                                  for d in dense]),
+                lambda: np.stack([native.plain_patchify_dense(d, ps, ps)
+                                  for d in dense]),
+                f"of {len(dense)} dense 1500x1500 images")
+        idx = np.random.default_rng(SEED).permutation(900)[None, :100]
+        idx = np.repeat(idx, len(pairs), 0).astype(np.int32)
+        compare("gather_patches", lambda: native.gather_patches(batch, idx),
+                lambda: native.plain_gather_patches(batch, idx),
+                f"of a chunk {idx.shape} from {batch.shape}")
+        pinned = torch.empty(idx.shape + batch.shape[2:], pin_memory=True)
+        out = pinned.numpy()
+        compare("gather_patches(out=pinned)",
+                lambda: native.gather_patches(batch, idx, out=out),
+                lambda: native.plain_gather_patches(batch, idx),
+                "into a pinned buffer")
+        if not np.array_equal(pinned.numpy(),
+                              native.plain_gather_patches(batch, idx)):
+            raise AssertionError("the pinned buffer misses the gather")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _select_ms(torch, tr, x, mask):
+    """Wall ms of one synchronised selection and its CUDA-event ms over 5
+    back-to-back calls (the selection keeps the card busy: its idle share
+    in a request is 0.03, phase predict)."""
+    from ips_tpu_torch.utils.timing import cuda_ms
+
+    def run():
+        return tr.select(x, mask, tr.new_generator(SEED))
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return wall, cuda_ms(run, iters=5, warmup=1)
+
+
+def phase_int8(torch, np, device, card):
+    """int8 selection (``select_dtype: int8``) at the full MNIST width:
+    one select against the plain scorer's, serving, the driver on dense
+    host-densified input, and a streamed bottleneck selection at the full
+    camelyon_e2e width; returns score_logits' launches in its counted
+    runs."""
+    from ips_tpu_torch.config import config_from_dict
+    from ips_tpu_torch.data.camelyon.patches import (CamelyonPatches,
+                                                     synth_tile_slides)
+    from ips_tpu_torch.infer import Predictor
+    from ips_tpu_torch.ops import score_kernel as sk
+    from ips_tpu_torch.train.loop import train_one_epoch
+    from ips_tpu_torch.train.metrics import MetricsLogger
+    from ips_tpu_torch.train.steps import IPSTrainer
+    from ips_tpu_torch import main as driver
+
+    conf = config_from_dict(dict(MNIST_CONFIG, select_dtype="int8"))
+    n_iter = math.ceil((conf.N - conf.M) / conf.I)
+    counted = 0
+
+    # (a) one int8 selection against the plain scorer's int8 selection
+    tr = IPSTrainer(conf)
+    x = torch.from_numpy(make_patches(np, conf)).to(device, torch.bfloat16)
+    mask = torch.ones((conf.B, conf.N), dtype=torch.bool, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    sk.logits.launches = 0
+    idx = tr.select(x, mask, tr.new_generator(SEED))[2]
+    torch.cuda.synchronize()
+    if sk.logits.launches != n_iter:
+        raise AssertionError(f"int8 select launched {sk.logits.launches}")
+    counted += sk.logits.launches
+    peak = torch.cuda.max_memory_allocated()
+    encode, _ = tr._enc_score_fns()
+    if encode.__module__ != "ips_tpu_torch.models.quant":
+        raise AssertionError("select_dtype=int8 did not take the int8 "
+                             "encode")
+    check_plain_selection(torch, np, tr.model, conf, tr.pos_table, x, mask,
+                          idx.cpu().numpy(), seed=SEED, encode=encode)
+    bf16 = IPSTrainer(config_from_dict(MNIST_CONFIG))
+    bf16.model.load_state_dict(tr.model.state_dict())
+    same = torch.equal(idx.sort(1)[0], bf16.select(
+        x, mask, bf16.new_generator(SEED))[2].sort(1)[0])
+    times = {name: _select_ms(torch, t, x, mask)
+             for name, t in (("int8", tr), ("bf16", bf16))}
+    for name, (wall, ev) in times.items():
+        log(f"  {name} selection of {tuple(x.shape)}: "
+            f"{wall:.2f} ms wall (synchronised), {ev:.2f} ms by CUDA "
+            f"events (5 back-to-back); card {card}")
+    log(f"  int8 selection peak memory {peak / 2**20:.1f} MiB; kept set "
+        f"{'equal to' if same else 'other than'} the bf16 selection's")
+    del bf16
+
+    # (b) serving: four requests, the survivors re-encoded in full
+    # precision (no embedding reuse under int8)
+    pred = Predictor(conf, trainer=tr)
+    patches = make_patches(np, conf)
+    sk.logits.launches = 0
+    lat = []
+    for r in range(N_REQUESTS):
+        before = sk.logits.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pred.predict(patches)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if sk.logits.launches - before != n_iter:
+            raise AssertionError(f"int8 request {r}: "
+                                 f"{sk.logits.launches - before} launches")
+        for task in conf.task_list:
+            if not np.isfinite(out[task.name]).all():
+                raise AssertionError(f"int8 request {r}: non-finite "
+                                     f"{task.name}")
+    counted += sk.logits.launches
+    log(f"  int8 Predictor: {N_REQUESTS} requests of B = {conf.B}, "
+        f"{n_iter} score_logits launches each, finite outputs; "
+        f"{[round(t, 2) for t in lat]} ms")
+
+    # (c) the driver on dense input densified on the host (C++), 2 epochs
+    tmp = tempfile.mkdtemp(prefix="ips_tpu_torch_int8_")
+    try:
+        data = mnist_store(tmp, DRIVER_TRAIN_IMAGES, DRIVER_TEST_IMAGES)
+        ckpt = os.path.join(tmp, "ckpt")
+        metrics = os.path.join(tmp, "metrics.jsonl")
+        conf_d = config_from_dict(dict(
+            MNIST_CONFIG, select_dtype="int8", sparse_input=False,
+            data_dir=data, n_epoch=DRIVER_EPOCHS, n_epoch_warmup=1,
+            checkpoint_dir=ckpt, checkpoint_every=1, metrics_path=metrics))
+        steps = DRIVER_TRAIN_IMAGES // conf_d.B
+        evals = math.ceil(DRIVER_TEST_IMAGES / conf_d.B)
+        trainer, wall, launches, _, dpeak = run_driver(torch, conf_d,
+                                                       "mnist", None)
+        want = n_iter * DRIVER_EPOCHS * (steps + evals)
+        if launches != want:
+            raise AssertionError(f"int8 driver launched {launches}, "
+                                 f"expected {want}")
+        counted += launches
+        rows = metrics_rows(metrics)
+        check_metrics_rows(np, conf_d, rows, range(DRIVER_EPOCHS))
+        check_restore(torch, trainer, conf_d, ckpt, DRIVER_EPOCHS)
+        epoch_s = [r["train_seconds"] for r in rows if r["split"] == "train"]
+        log(f"  int8 driver (dense input, host densify in C++): "
+            f"{DRIVER_EPOCHS} epochs of {steps} steps and {evals} eval "
+            f"batches in {wall:.2f} s, {launches} launches; epoch 1 "
+            f"{epoch_s[1] / steps * 1e3:.2f} ms per optimizer step; peak "
+            f"{dpeak / 2**20:.1f} MiB; card {card}")
+        for r in rows:
+            log(f"    {r['split']} epoch {r['epoch']}: " + ", ".join(
+                f"{t.name} {r[f'{t.name}_loss']:.4f}" for t in
+                conf_d.task_list))
+        loader, _ = driver.build_loaders(conf_d, *driver.build_datasets(
+            conf_d, "mnist"))
+        busy = breakdown(torch, lambda: train_one_epoch(
+            trainer, loader, 1, MetricsLogger(conf_d.task_list), conf_d),
+            epoch_s[1], what=f"int8 driver epoch of {steps} steps")
+        if busy is not None:
+            log(f"  int8 driver step: device busy {busy / steps:.2f} ms of "
+                f"{epoch_s[1] / steps * 1e3:.2f} ms (idle share "
+                f"{1 - busy / (epoch_s[1] * 1e3):.3f}); card {card}")
+        del trainer, loader
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (d) bottleneck blocks, streamed: one camelyon_e2e slide at full width
+    conf_e = config_from_dict(dict(CAMELYON_E2E_CONFIG, select_dtype="int8"))
+    counts = np.random.default_rng(SEED).integers(
+        *E2E_TRAIN_TILES, E2E_TRAIN_SLIDES).tolist()[:E2E_INT8_SLIDE + 1]
+    ds = CamelyonPatches(conf_e, True, slides=synth_tile_slides(
+        counts, tuple(conf_e.patch_size), seed=SEED))
+    item = ds[E2E_INT8_SLIDE]
+    tr_e = IPSTrainer(conf_e)
+    per_slide = n_chunks(conf_e, ds.bucket_of(E2E_INT8_SLIDE))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sk.logits.launches = 0
+    t0 = time.perf_counter()
+    sel = tr_e.select_streaming(item["input"][None], item["mask"][None],
+                                tr_e.new_generator(SEED))
+    torch.cuda.synchronize()
+    sel_s = time.perf_counter() - t0
+    if sk.logits.launches != per_slide:
+        raise AssertionError(f"streamed int8 select launched "
+                             f"{sk.logits.launches}, expected {per_slide}")
+    counted += sk.logits.launches
+    kept = sel[2].cpu().numpy()
+    if not (kept.shape == (1, conf_e.M) and kept.max() < counts[-1]):
+        raise AssertionError(f"streamed int8 selection kept {kept.shape}")
+    log(f"  int8 select_streaming of a {counts[-1]}-tile slide (bucket "
+        f"{ds.bucket_of(E2E_INT8_SLIDE)}, {conf_e.enc_type}/"
+        f"{conf_e.n_res_blocks} bottleneck blocks, "
+        f"{conf_e.patch_size[0]}x{conf_e.patch_size[1]}x3 uint8): "
+        f"{per_slide} launches, {sel_s * 1e3:.2f} ms "
+        f"(synchronised, first call), peak above its start "
+        f"{(torch.cuda.max_memory_allocated() - base) / 2**20:.1f} MiB; "
+        f"card {card}")
+    return counted
+
+
+EXPORT_CHILD = r'''
+import json, sys, time
+import numpy as np, torch
+import ips_tpu_torch.ops.score_kernel as sk
+path, inp, out = sys.argv[1:4]
+t0 = time.perf_counter()
+torch.zeros(1, device="cuda")             # the CUDA context, timed apart
+init_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+ep = torch.export.load(path)
+mod = ep.module()
+load_s = time.perf_counter() - t0
+x = np.load(inp)
+lat, launches = [], []
+for _ in range(int(sys.argv[4])):
+    before = sk.logits.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # host input to host output, as Predictor.predict
+    xd = torch.from_numpy(x).cuda()
+    m = torch.ones(xd.shape[:2], dtype=torch.bool, device=xd.device)
+    with torch.no_grad():
+        res = {k: v.cpu().numpy() for k, v in mod(xd, m).items()}
+    lat.append((time.perf_counter() - t0) * 1e3)
+    launches.append(sk.logits.launches - before)
+np.savez(out, **res)
+print(json.dumps({"init_s": init_s, "load_s": load_s, "ms": lat,
+                  "launches": launches,
+                  "modules": sorted(k for k in sys.modules
+                                    if k.startswith("ips_tpu_torch"))}))
+'''
+
+
+def phase_export(torch, np, device, card, pred, patches):
+    """The full-width MNIST Predictor exported on the card through the CLI
+    (with its selftest), then loaded and run in a fresh process that
+    imports only the op's module; returns score_logits' launches there."""
+    from ips_tpu_torch import export
+    from ips_tpu_torch.ops import score_kernel as sk
+    conf = pred.conf
+    n_iter = math.ceil((conf.N - conf.M) / conf.I)
+    tmp = tempfile.mkdtemp(prefix="ips_tpu_torch_export_")
+    try:
+        cfg = os.path.join(tmp, "config.json")
+        with open(cfg, "w") as f:
+            json.dump(MNIST_CONFIG, f)
+        ckpt = os.path.join(tmp, "weights.pt")
+        torch.save(pred.trainer.model.state_dict(), ckpt)
+        art = os.path.join(tmp, "model.pt2")
+        t0 = time.perf_counter()
+        export.main(["--config", cfg, "--checkpoint", ckpt, "--output", art,
+                     "--batch", str(conf.B), "--selftest"])
+        log(f"  exported and self-tested in "
+            f"{time.perf_counter() - t0:.2f} s; artifact "
+            f"{os.path.getsize(art) / 1e6:.2f} MB")
+        inp, out = os.path.join(tmp, "x.npy"), os.path.join(tmp, "out.npz")
+        np.save(inp, patches)
+        root = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        proc = subprocess.run(
+            [sys.executable, "-c", EXPORT_CHILD, art, inp, out,
+             str(EXPORT_REQUESTS)], cwd=tmp, env=env, capture_output=True,
+            text=True, timeout=300)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the fresh process failed:\n"
+                               f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        if child["launches"] != [n_iter] * EXPORT_REQUESTS:
+            raise AssertionError(f"exported program launched "
+                                 f"{child['launches']}, expected {n_iter} "
+                                 "a request")
+        if "ips_tpu_torch.infer" in child["modules"]:
+            raise AssertionError("the fresh process imported the model code")
+        live = pred.predict(patches)
+        with np.load(out) as f:
+            got = dict(f)
+        np.testing.assert_array_equal(got["selected_idx"],
+                                      live["selected_idx"])
+        bitwise = all(np.array_equal(got[t.name], live[t.name])
+                      for t in conf.task_list)
+        for t in conf.task_list:
+            np.testing.assert_allclose(got[t.name], live[t.name], rtol=0,
+                                       atol=1e-5)
+        live_ms = []
+        for _ in range(EXPORT_REQUESTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred.predict(patches)
+            live_ms.append((time.perf_counter() - t0) * 1e3)
+        med = sorted(child["ms"][1:])[len(child["ms"][1:]) // 2]
+        live_med = sorted(live_ms[1:])[len(live_ms[1:]) // 2]
+        log(f"  fresh process (imports {child['modules']}): CUDA context "
+            f"{child['init_s']:.2f} s, then loaded (torch.export.load and "
+            f".module()) in {child['load_s']:.2f} s; {EXPORT_REQUESTS} "
+            f"requests "
+            f"{[round(v, 2) for v in child['ms']]} ms, {child['launches']} "
+            f"score_logits launches; selected_idx equal to the live "
+            f"Predictor's, probabilities within 1e-5 ("
+            + ("bitwise equal" if bitwise else "not bitwise equal") + ")")
+        log(f"  request latency: exported {med:.2f} ms, live Predictor "
+            f"{live_med:.2f} ms (medians after the first; card {card})")
+
+        # the op's dispatch against the direct ctypes call, per call on
+        # the host, at the MNIST selection shape
+        x = torch.randn((conf.B, conf.M + conf.I, conf.D), device=device,
+                        dtype=torch.float32)
+        w = torch.randn((conf.D, conf.n_token * conf.H), device=device)
+        calls = {"op": lambda: torch.ops.ips_tpu_torch.score_logits(x, w),
+                 "ctypes": lambda: sk._launch(x, w)}
+        per = {}
+        for name in ("op", "ctypes", "ctypes", "op"):
+            for _ in range(50):
+                calls[name]()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                calls[name]()
+            torch.cuda.synchronize()
+            per.setdefault(name, []).append(
+                (time.perf_counter() - t0) / 2000 * 1e6)
+        log(f"  score_logits per call (2000 back-to-back, fp32 "
+            f"{tuple(x.shape)}x{tuple(w.shape)}): through the op "
+            f"{[round(v, 2) for v in per['op']]} us, direct ctypes "
+            f"{[round(v, 2) for v in per['ctypes']]} us (in turns op, "
+            f"ctypes, ctypes, op); card {card}")
+        return sum(child["launches"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 class Synchronous:
     """An encoder's dispatch/fetch with no overlap: each batch is fetched
     as soon as it is dispatched (phase preprocess's reference loop)."""
@@ -2000,12 +2432,21 @@ def main() -> int:
         e2e_launches = phase_camelyon_e2e(torch, np, device, card)
     with Phase("traffic"):
         traffic_launches = phase_traffic(torch, np, device, card)
+    with Phase("hostops"):
+        phase_hostops(torch, np, card)
+    with Phase("int8"):
+        int8_launches = phase_int8(torch, np, device, card)
+    with Phase("export"):
+        export_launches = phase_export(torch, np, device, card, pred,
+                                       patches)
     entry["launches_by_path"] = {"predict": launches,
                                  "train": train_launches,
                                  "driver": driver_launches,
                                  "camelyon": camelyon_launches,
                                  "camelyon_e2e": e2e_launches,
-                                 "traffic": traffic_launches}
+                                 "traffic": traffic_launches,
+                                 "int8": int8_launches,
+                                 "export": export_launches}
     entry["launches"] = sum(entry["launches_by_path"].values())
     with Phase("preprocess"):
         phase_preprocess(torch, np, device, card)

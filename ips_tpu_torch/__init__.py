@@ -13,7 +13,11 @@ generator and loader, epoch loops, sparse densify on the device,
 metrics, checkpoints); the camelyon feature and end-to-end paths with
 streaming selection; the slide-preprocessing pipeline
 (``ips_tpu_torch.data.camelyon``: synth, otsu, foreground, extract_feat)
-and pretrained encoder weights (``ips_tpu_torch.models.pretrained``).
+and pretrained encoder weights (``ips_tpu_torch.models.pretrained``); the
+traffic-sign path; the host-side patch ops in C++ (``native``,
+``csrc/hostops.cpp``, built with g++ at first use); int8 selection
+(``select_dtype: int8``, ``models.quant``); and ``torch.export`` of the
+Predictor (``python -m ips_tpu_torch.export``).
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``.
 """
 

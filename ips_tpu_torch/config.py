@@ -237,14 +237,10 @@ class Config:
         Each names the ROADMAP.md queue-1 item that brings it, so that a
         config is never run with a knob silently ignored.
         """
-        if self.select_dtype == "int8":
-            raise NotImplementedError(
-                "select_dtype='int8' is not ported yet: ROADMAP.md queue 1, "
-                "item 6 (export / quant / parallel)")
         if self.mesh_data > 1 or self.mesh_patch > 1:
             raise NotImplementedError(
                 "mesh_data/mesh_patch > 1 is not ported yet: ROADMAP.md "
-                "queue 1, item 6 (export / quant / parallel)")
+                "queue 1, item 6 (parallel)")
 
     # -- convenience --------------------------------------------------------
     @property

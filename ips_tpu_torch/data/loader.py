@@ -56,8 +56,7 @@ class DataLoader:
         if process_count > 1 or process_index != 0:
             raise NotImplementedError(
                 "a process-sharded DataLoader (process_count > 1) is not "
-                "ported yet: ROADMAP.md queue 1, item 6 (export / quant / "
-                "parallel)")
+                "ported yet: ROADMAP.md queue 1, item 6 (parallel)")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle

@@ -45,8 +45,11 @@ class Predictor:
             load_checkpoint(self.trainer.model, checkpoint)
         self.device = self.trainer.device
 
-    @torch.inference_mode()
-    def _predict_impl(self, patches: torch.Tensor, mask: torch.Tensor):
+    def forward(self, patches: torch.Tensor, mask: torch.Tensor):
+        """(B, N, ...) patches and a (B, N) mask on the device ->
+        ({task: probs}, (B, M) selected indices). The caller chooses the
+        grad mode: ``predict`` runs it under inference mode, the export
+        (``ips_tpu_torch/export.py``) traces it under ``no_grad``."""
         tr, model = self.trainer, self.trainer.model
         if tr._reuse_eval_emb():
             # the selection buffer's embeddings are what re-encoding the
@@ -70,7 +73,8 @@ class Predictor:
         m = (torch.as_tensor(np.asarray(mask, bool)).to(self.device)
              if mask is not None
              else torch.ones((B, N), dtype=torch.bool, device=self.device))
-        preds, mem_idx = self._predict_impl(x, m)
+        with torch.inference_mode():
+            preds, mem_idx = self.forward(x, m)
         out = {k: v.float().cpu().numpy() for k, v in preds.items()}
         out["selected_idx"] = mem_idx.cpu().numpy()
         return out

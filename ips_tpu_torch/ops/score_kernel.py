@@ -11,9 +11,12 @@ and the scorer is one (L, D) x (D, T*H) product per batch row. On a CUDA
 tensor :func:`logits` launches the hand-written kernel
 ``csrc/score_logits.cu`` (the port of the TPU kernel ``_logits_kernel``);
 on a CPU tensor it runs :func:`plain_logits`, the same function in plain
-PyTorch. :func:`scores` adds the epilogue (mask, softmax over L, mean over
-T*H) in PyTorch, as the reference leaves it to XLA after its kernel.
-:func:`fast_scores` is the plain version of the whole scorer.
+PyTorch. Both go through the operator ``ips_tpu_torch::score_logits``,
+which importing this module registers and which a program exported by
+``ips_tpu_torch/export.py`` calls. :func:`scores` adds the epilogue (mask,
+softmax over L, mean over T*H) in PyTorch, as the reference leaves it to
+XLA after its kernel. :func:`fast_scores` is the plain version of the
+whole scorer.
 """
 
 from __future__ import annotations
@@ -78,17 +81,9 @@ def _bind() -> ctypes.CDLL:
     return lib
 
 
-def logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(B, L, D) x (D, TH) -> (B, L, TH) fp32 saliency logits.
-
-    A CUDA tensor launches ``csrc/score_logits.cu`` (counted in
-    ``logits.launches``) or raises; a CPU tensor takes
-    :func:`plain_logits`.
-    """
-    if x.device.type == "cpu":
-        return plain_logits(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"score logits: unsupported device {x.device}")
+def _launch(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Check x and w and launch ``csrc/score_logits.cu`` on them (counted
+    in ``logits.launches``), or raise."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"score logits: x must be fp32 or bf16, not {x.dtype}")
     if w.dtype != x.dtype or w.device != x.device:
@@ -114,6 +109,40 @@ def logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                            + lib.score_logits_error_string(err).decode())
     logits.launches += 1
     return out
+
+
+# The logits as an operator of its own, so that torch.export keeps it as
+# one node of the graph (``ips_tpu_torch::score_logits``) on either device:
+# the CPU runs the plain version, the card the kernel, and the fake
+# implementation gives export the output's shape and type.
+@torch.library.custom_op("ips_tpu_torch::score_logits", mutates_args=(),
+                         device_types="cpu")
+def score_logits_op(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return plain_logits(x, w)
+
+
+@score_logits_op.register_kernel("cuda")
+def _score_logits_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return _launch(x, w)
+
+
+@score_logits_op.register_fake
+def _score_logits_fake(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return x.new_empty((x.shape[0], x.shape[1], w.shape[1]),
+                       dtype=torch.float32)
+
+
+def logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, L, D) x (D, TH) -> (B, L, TH) fp32 saliency logits, through the
+    operator ``ips_tpu_torch::score_logits``.
+
+    A CUDA tensor launches ``csrc/score_logits.cu`` (counted in
+    ``logits.launches``) or raises; a CPU tensor takes
+    :func:`plain_logits`.
+    """
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"score logits: unsupported device {x.device}")
+    return torch.ops.ips_tpu_torch.score_logits(x, w)
 
 
 logits.launches = 0

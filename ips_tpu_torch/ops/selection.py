@@ -23,8 +23,8 @@ variants, which select the same patches:
 brought to the device (the streaming selection of
 ``train/streaming.py``). The reference's ``unroll`` (a ``lax.scan``
 unroll factor) has no meaning in an eager loop, and ``encode_wrap``
-belongs to context parallelism (ROADMAP.md queue 1, item 6); neither is
-here.
+belongs to context parallelism (ROADMAP.md queue 1, item 6 (parallel));
+neither is here.
 """
 
 from __future__ import annotations

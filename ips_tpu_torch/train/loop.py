@@ -90,7 +90,7 @@ def check_ported_schedule(conf: Config) -> None:
         raise NotImplementedError(
             "multi-process training (the multi-host schedules, "
             "_epoch_assembled_mh among them) is not ported yet: "
-            "ROADMAP.md queue 1, item 6 (export / quant / parallel)")
+            "ROADMAP.md queue 1, item 6 (parallel)")
 
 
 def _np(x) -> np.ndarray:

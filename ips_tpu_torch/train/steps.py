@@ -43,6 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ips_tpu_torch.config import Config
 from ips_tpu_torch.models.ips_net import DTYPES, IPSModel, init_weights
+from ips_tpu_torch.models.quant import make_quant_encode_fn
 from ips_tpu_torch.models.transformer import pos_enc_1d_np
 from ips_tpu_torch.ops.densify import densify_patches
 from ips_tpu_torch.ops.selection import ips_select
@@ -178,7 +179,16 @@ class IPSTrainer:
 
     # -- selection ----------------------------------------------------------
     def _enc_score_fns(self):
-        """(encode, score) closures for the selection pass (eval mode)."""
+        """(encode, score) closures for the selection pass (eval mode).
+
+        With ``select_dtype: int8`` the encoder runs int8-quantized
+        (models/quant.py): selection only ranks patches and its embeddings
+        are discarded, and the train forward re-encodes the survivors in
+        full precision.
+        """
+        if self.conf.select_dtype == "int8" and self.conf.is_image:
+            return make_quant_encode_fn(self.model, self.conf), \
+                self.model.scores
         return self.model.encode, self.model.scores
 
     def _resolve_preencode(self, shape: Sequence[int],

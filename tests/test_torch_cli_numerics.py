@@ -18,6 +18,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLIS = {
     "ips_tpu_torch.main": ["--no-such-flag"],
     "ips_tpu_torch.infer": ["--no-such-flag"],
+    "ips_tpu_torch.export": ["--no-such-flag"],
     "ips_tpu_torch.data.mnist": ["--no-such-flag"],
     "ips_tpu_torch.data.traffic_synth": ["--no-such-flag"],
     "ips_tpu_torch.data.camelyon.synth": ["--no-such-flag"],

@@ -74,12 +74,25 @@ def test_overrides_and_json(tmp_path):
 
 
 @pytest.mark.parametrize("over,match", [
-    ({"select_dtype": "int8"}, "item 6"), ({"mesh_data": 2}, "item 6"),
-    ({"mesh_patch": 2}, "item 6")])
+    ({"mesh_data": 2}, "item 6"), ({"mesh_patch": 2}, "item 6")])
 def test_unported_values_raise(over, match):
     base = dict(_smoke_module().MNIST_CONFIG)
     with pytest.raises(NotImplementedError, match=match):
         config_from_dict(dict(base, **over))
+
+
+def test_int8_select_config_builds():
+    """select_dtype=int8 is ported: the config builds and the trainer's
+    selection encode is the int8 one (models/quant.py)."""
+    from ips_tpu_torch.train.steps import IPSTrainer
+    conf = config_from_dict(dict(_smoke_module().MNIST_CONFIG,
+                                 select_dtype="int8"))
+    assert conf.select_dtype == "int8"
+    tr = IPSTrainer(conf.replace(N=12, M=4, I=4), device="cpu",
+                    init_opt=False)
+    encode, score = tr._enc_score_fns()
+    assert encode.__module__ == "ips_tpu_torch.models.quant"
+    assert score == tr.model.scores
 
 
 def test_feature_mode_is_accepted():

@@ -553,3 +553,99 @@ def test_pipelined_extraction_equals_synchronous_on_card(no_tf32,
     with torch.inference_mode():
         want = enc.model(tail.to(no_tf32).float() / 255.0)[:5].cpu().numpy()
     assert np.array_equal(piped[-1], want)
+
+
+# -------------------------------------- int8 selection and export (card)
+INT8_TINY = dict(
+    B=2, B_seq=2, n_class=10, n_chan_in=1, n_token=2, N=23, M=4, I=5,
+    patch_size=[16, 16], patch_stride=[16, 16], use_pos=True, H=4, D=128,
+    D_k=16, D_v=16, D_inner=256, compute_dtype="float32", shuffle=False,
+    tasks={"t": {"id": 0, "name": "t", "act_fn": "softmax",
+                 "metric": "accuracy"}})
+
+
+def _smoke_module():
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("k,c_in,c_out,stride,pad,n", [
+    (7, 1, 64, 2, 3, 40), (7, 3, 64, 2, 3, 8), (3, 64, 128, 2, 1, 16),
+    (1, 256, 512, 2, 0, 4), (3, 64, 64, 1, 1, 1)])
+def test_int8_conv_card_equals_cpu(cuda, k, c_in, c_out, stride, pad, n):
+    """torch._int_mm's int32 sums (cuBLASLt on the card) equal the CPU's,
+    through the padded im2col of models/quant.py; the last case has fewer
+    than 17 rows."""
+    from ips_tpu_torch.models.quant import int8_conv
+    rng = np.random.default_rng(k + c_in + n)
+    xq = torch.from_numpy(rng.integers(-127, 128, (n, 9, 9, c_in))
+                          .astype(np.int8))
+    kq = torch.from_numpy(rng.integers(-127, 128, (c_out, c_in, k, k))
+                          .astype(np.int8))
+    got = int8_conv(xq.to(cuda), kq.to(cuda), stride, pad)
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    assert torch.equal(got.cpu(), int8_conv(xq, kq, stride, pad))
+
+
+def test_int8_select_card_matches_cpu(no_tf32):
+    """The int8 selection on the card keeps the CPU's indices, or parts
+    from them only at a near-tie (the gap at the M-th place within twice
+    the two scorings' largest difference, chip_smoke.py's rule)."""
+    from ips_tpu_torch.config import config_from_dict
+    from ips_tpu_torch.train.steps import IPSTrainer
+    conf = config_from_dict(dict(INT8_TINY, select_dtype="int8"))
+    card = IPSTrainer(conf)
+    cpu = IPSTrainer(conf, device="cpu")
+    cpu.model.load_state_dict(card.model.state_dict())
+    rng = np.random.default_rng(4)
+    x = rng.random((2, 23, 16, 16, 1), np.float32)
+    x[:, rng.random(23) < 0.4] = 0.0
+    x = torch.from_numpy(x)
+    mask = torch.ones((2, 23), dtype=torch.bool)
+    xc, mc = x.to(no_tf32), mask.to(no_tf32)
+    before = sk.logits.launches
+    got = card.select(xc, mc)[2].cpu()
+    assert sk.logits.launches - before == 4
+    want = cpu.select(x, mask)[2]
+    if torch.equal(got, want):
+        return
+    smoke = _smoke_module()
+    enc_card, _ = card._enc_score_fns()
+    enc_cpu, _ = cpu._enc_score_fns()
+    rows = torch.arange(2)[:, None]
+
+    def cpu_scores(i, e, v):
+        i = i.cpu()
+        emb = enc_cpu(x[rows, i]) + cpu.pos_table[i]
+        return cpu.model.scores(emb, v.cpu()).to(no_tf32)
+    report = smoke.tie_report(
+        torch, card.model, conf, card.pos_table, xc, mc, None,
+        lambda i: enc_card(xc[rows.to(no_tf32), i]), cpu_scores)
+    smoke._check_near_tie(report, "int8 selection on the card")
+
+
+def test_exported_program_on_card_matches_live(cuda, tmp_path):
+    """The Predictor exported on the card, saved and loaded, against the
+    live one: selected indices equal, probabilities within 1e-5, and the
+    kernel launched once a chunk inside the program."""
+    from ips_tpu_torch.config import config_from_dict
+    from ips_tpu_torch.export import ExportedPredictor, export_predictor
+    from ips_tpu_torch.infer import Predictor
+    live = Predictor(config_from_dict(dict(INT8_TINY)))
+    path = str(tmp_path / "m.pt2")
+    torch.export.save(export_predictor(live, batch_size=2), path)
+    model = ExportedPredictor.load(path)
+    assert model.device.type == "cuda"
+    x = np.random.default_rng(5).random((2, 23, 16, 16, 1), np.float32)
+    before = sk.logits.launches
+    out = model.predict(x)
+    assert sk.logits.launches - before == 4       # ceil((23 - 4) / 5)
+    ref = live.predict(x)
+    np.testing.assert_array_equal(out["selected_idx"], ref["selected_idx"])
+    np.testing.assert_allclose(out["t"], ref["t"], rtol=0, atol=1e-5)

@@ -55,7 +55,9 @@ def test_sources_found():
             "ips_tpu_torch/scripts/e2e_learning.py",
             "ips_tpu_torch/data/traffic.py",
             "ips_tpu_torch/data/traffic_synth.py",
-            "ips_tpu_torch/scripts/traffic_learning.py"} <= rel
+            "ips_tpu_torch/scripts/traffic_learning.py",
+            "ips_tpu_torch/models/quant.py",
+            "ips_tpu_torch/export.py"} <= rel
 
 
 @pytest.mark.parametrize("path", SOURCES,
