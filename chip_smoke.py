@@ -43,7 +43,21 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                bitwise, a resumed run that trains only the next epoch, ms
                per step, peak memory and a profiler breakdown of one
                epoch with the device's idle share;
-  8. camelyon — the camelyon feature-mode path through the driver
+  8. parallel — data and exact context parallelism at the same full
+               width on phase driver's store, two ranks sharing cuda:0
+               over gloo (``ips_tpu_torch.parallel``): one K = 8 group of
+               fused sparse steps at 2x1 and at 1x2 from the seed's
+               weights against one process (kept sets equal or parted
+               at a near tie, losses within a stated bound, parameters,
+               AdamW moments and running statistics bitwise equal on both
+               ranks, rank 0's ``score_logits`` launches), the local merge
+               over the 2 ranks against one process's, ms a step and the
+               collectives' CUDA-event ms (two ranks on one card: no
+               multi-card speed); the CLI under
+               ``torch.distributed.run`` as 2 ranks for one epoch against
+               phase driver's epoch 0; a one-rank NCCL world whose 1x1
+               sharded step is bitwise the single trainer's;
+  9. camelyon — the camelyon feature-mode path through the driver
                (``ips_tpu_torch.main``) at the full width of
                config/camelyon_config.yml (2048-dim features projected to
                D = 512, M = I = 5000, B = 16 from B_seq = 1 slots, K = 4,
@@ -60,7 +74,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                device's idle share. The card has no h5py, so
                the slides stay in memory (``CamelyonFeatures(slides=)``)
                and reach ``ips_tpu_torch.main.run``;
-  9. camelyon_e2e — the camelyon end-to-end path through the driver at
+ 10. camelyon_e2e — the camelyon end-to-end path through the driver at
                the full width of config/camelyon_e2e_config.yml (224x224x3
                uint8 tiles, ResNet-50 cut after layer2, D = 512, M = I =
                256, B = 8 from B_seq = 1, bf16, ``eager: false``: tiles
@@ -75,7 +89,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                selection's peak memory on a 1280- and a 2304-tile slide
                within 64 MiB, ms per step, peak memory and the device's
                idle share over a profiled epoch;
- 10. traffic — the traffic-sign path through the driver at the full width
+ 11. traffic — the traffic-sign path through the driver at the full width
                of config/traffic_config.yml (1200x1600 RGB, N = 192
                patches of 100x100x3, M = 10, I = 32, B = 16, ResNet-18
                with all 4 blocks, D = 512, bf16, fp32 host normalization,
@@ -88,14 +102,14 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                scorer's, a train item's host time (augment, normalize and
                patchify), ms per step, peak memory and a profiler
                breakdown of one epoch with the device's idle share;
- 11. hostops — the C++ host library (csrc/hostops.cpp) built with g++ on
+ 12. hostops — the C++ host library (csrc/hostops.cpp) built with g++ on
                this machine (build seconds), ``densify_patchify``,
                ``patchify_dense`` and ``gather_patches`` (float32, into a new
                array and into a pinned buffer) bitwise against their numpy
                versions at the MNIST shapes (16 images of 1500x1500, 900
                patches of 50x50, a chunk of I = 100), host ms of each
                against numpy's;
- 12. int8    — int8 selection (``select_dtype: int8``) at the full MNIST
+ 13. int8    — int8 selection (``select_dtype: int8``) at the full MNIST
                width: one select against the plain scorer's int8 selection
                (near-ties allowed), its device ms against the bf16
                selection's on the same batch; 4 ``Predictor`` requests (8
@@ -106,7 +120,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                device's idle share); one streamed int8 selection of a
                camelyon_e2e slide at full width (ResNet-50/2 bottleneck
                blocks, uint8 224x224 tiles) and its peak;
- 13. export  — the export CLI's ``main`` (ips_tpu_torch/export.py) on
+ 14. export  — the export CLI's ``main`` (ips_tpu_torch/export.py) on
                the full-width MNIST Predictor on the card with
                ``--selftest``; the artifact
                loaded in a fresh process that imports only
@@ -116,7 +130,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                probabilities within 1e-5; artifact size, load seconds,
                request latency against the live Predictor; the operator's
                dispatch against the direct ctypes call;
- 14. preprocess — the slide-preprocessing pipeline and pretrained weights
+ 15. preprocess — the slide-preprocessing pipeline and pretrained weights
                (``ips_tpu_torch.data.camelyon`` synth, otsu, foreground,
                extract_feat; ``models.pretrained``): 4 train and 2 test
                slides of 5600x5600 made in memory from the seed; otsu
@@ -132,7 +146,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                synchronous loop, the first 8 tiles within a stated bf16
                tolerance of the CPU forward; then one evaluation of the
                camelyon feature config on those features;
- 15. conv_probe — the fused BasicBlock kernel against its plain version
+ 16. conv_probe — the fused BasicBlock kernel against its plain version
                at the layer1 shapes (1600, 13, 13, 64), paired
                (800, 13, 13, 128), a ragged one and layer2_block1's
                (1600, 7, 7, 128), timed in phase kernels; the main
@@ -317,6 +331,24 @@ SCORES_RTOL, SCORES_ATOL = 1e-4, 1e-6
 # move by one bf16 ulp: at most 2^-7 |y|, 1.6e-2 for |y| < 4.
 BLOCK_RTOL, BLOCK_ATOL = 1.6e-2, 1.6e-2
 KERNELS = ("score_logits", "conv_block")
+
+# phase parallel: worlds of ranks sharing cuda:0 (gloo), each with this
+# deadline in seconds; the meshes (data, patch) of its checked groups;
+# the generators' seed; repetitions of each timed collective
+PARALLEL_TIMEOUT = 240
+PARALLEL_MESHES = ((2, 1), (1, 2))
+PARALLEL_SEED = 500
+PARALLEL_REPEATS = 20
+# Losses against one process's. The first step of a K group differs only
+# by the global statistics summed in two halves and bf16 encodes of 8 rows
+# instead of 16 (measured 8e-5 at 2x1, 0 at 1x2); later steps also by
+# AdamW's first moves, about lr * sign(g), which carry gradients within
+# rounding of 0 either way, and the near-tie selections they lead to
+# (measured 3.3e-3 over the group; the 2-rank CLI's epoch-0 losses 2.1e-3
+# from phase driver's; NVIDIA H100 80GB HBM3, 700 W; PERF.md §6).
+PARALLEL_STEP0_TOL = 1e-3
+PARALLEL_LOSS_TOL = 1e-2
+PARALLEL_CLI_TOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -1058,9 +1090,10 @@ def mnist_store(tmp, n_train, n_test):
     return data
 
 
-def phase_driver(torch, np, device, card):
-    """The training driver at the shipped config; returns score_logits'
-    launches in its 2-epoch run."""
+def phase_driver(torch, np, device, card, tmp):
+    """The training driver at the shipped config, its store and files in
+    ``tmp``; returns score_logits' launches in its 2-epoch run, the
+    store's directory and the run's metrics lines."""
     from ips_tpu_torch import main as driver
     from ips_tpu_torch.config import config_from_dict
     from ips_tpu_torch.data.loader import DataLoader
@@ -1070,114 +1103,504 @@ def phase_driver(torch, np, device, card):
     from ips_tpu_torch.train.loop import train_one_epoch
     from ips_tpu_torch.train.metrics import MetricsLogger
     from ips_tpu_torch.utils.timing import bound_ms, device_ms
-    tmp = tempfile.mkdtemp(prefix="ips_tpu_torch_driver_")
+    data = mnist_store(tmp, DRIVER_TRAIN_IMAGES, DRIVER_TEST_IMAGES)
+    ckpt = os.path.join(tmp, "ckpt")
+    metrics = os.path.join(tmp, "metrics.jsonl")
+    conf_d = dict(MNIST_CONFIG, data_dir=data, n_epoch=DRIVER_EPOCHS,
+                  n_epoch_warmup=1, checkpoint_dir=ckpt,
+                  checkpoint_every=1, metrics_path=metrics)
+    cfg = os.path.join(tmp, "config.json")
+    with open(cfg, "w") as f:
+        json.dump(conf_d, f)
+    conf = config_from_dict(conf_d)
+    n_iter = math.ceil((conf.N - conf.M) / conf.I)
+    steps = DRIVER_TRAIN_IMAGES // conf.B
+    evals = math.ceil(DRIVER_TEST_IMAGES / conf.B)
+
+    # (a) two epochs through the CLI entry point, on the card by default
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.logits.launches = 0
+    t0 = time.perf_counter()
+    trainer, _, _ = driver.main(["--config", cfg])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sk.logits.launches
+    peak = torch.cuda.max_memory_allocated()
+    if trainer.device.type != "cuda":
+        raise AssertionError(f"the driver ran on {trainer.device}")
+    want = n_iter * DRIVER_EPOCHS * (steps + evals)
+    if launches != want:
+        raise AssertionError(f"score kernel launched {launches} times, "
+                             f"expected {want}")
+    rows = metrics_rows(metrics)
+    check_metrics_rows(np, conf, rows, range(DRIVER_EPOCHS))
+    epoch_s = [r["train_seconds"] for r in rows if r["split"] == "train"]
+    log(f"  driver: {DRIVER_EPOCHS} epochs of {steps} steps (K = "
+        f"{conf.steps_per_dispatch}) and {evals} eval batches in "
+        f"{wall:.2f} s; {launches} score_logits launches "
+        f"({launches / (DRIVER_EPOCHS * (steps + evals)):g} per step and "
+        f"per eval batch); trainer step {trainer.step}")
+    log(f"  driver: epoch wall {epoch_s[0]:.4f} s (epoch 0, warm-up), "
+        f"{epoch_s[1]:.4f} s (epoch 1): {epoch_s[1] / steps * 1e3:.2f} ms "
+        f"per optimizer step; peak memory {peak / 2**20:.1f} MiB "
+        f"(max_memory_allocated); card {card}")
+    for r in rows:
+        log(f"    {r['split']} epoch {r['epoch']}: " + ", ".join(
+            f"{t.name} {r[f'{t.name}_loss']:.4f}/"
+            f"{r[f'{t.name}_{t.metric}']:.3f}" for t in conf.task_list))
+
+    # (b) densify on the card against the CPU on one real batch
+    batch = next(iter(DataLoader(MegapixelMNIST(conf, train=True),
+                                 batch_size=conf.B)))
+    hw = tuple(int(v) for v in batch["img_hw"][0])
+    on_card = trainer.densify(batch["input_idx"], batch["input_val"], hw)
+    on_cpu = densify_patches(torch.from_numpy(batch["input_idx"]),
+                             torch.from_numpy(batch["input_val"]), hw,
+                             conf.patch_size, conf.n_chan_in,
+                             torch.bfloat16)
+    if not torch.equal(on_card.cpu(), on_cpu):
+        raise AssertionError("densify on the card differs from the CPU")
+    idx_d = torch.from_numpy(batch["input_idx"]).to(device)
+    val_d = torch.from_numpy(batch["input_val"]).to(device)
+    dens_ms = device_ms(lambda: densify_patches(
+        idx_d, val_d, hw, conf.patch_size, conf.n_chan_in,
+        torch.bfloat16))
+    # the (int32, fp32) pairs read once, the bf16 patches written once;
+    # one add a pair
+    dens_bound, dens_by = bound_ms(
+        idx_d.numel() * 8 + on_card.numel() * 2, idx_d.numel(),
+        "float32")
+    log(f"  densify {tuple(on_card.shape)} {on_card.dtype} from "
+        f"{batch['input_idx'].shape[1]} padded pixels a row: bitwise "
+        f"equal to the CPU's; device "
+        + ("not measured" if dens_ms is None else f"{dens_ms:.4f} ms")
+        + f" (bound {dens_bound:.4f} ms, {dens_by})")
+
+    # (c) the last checkpoint into a fresh trainer, bitwise
+    check_restore(torch, trainer, conf, ckpt, DRIVER_EPOCHS)
+
+    # (d) resume with one more epoch: only epoch 2 trains (a second
+    # JSON config, since key=value overrides need pyyaml)
+    cfg_resume = os.path.join(tmp, "config_resume.json")
+    with open(cfg_resume, "w") as f:
+        json.dump(dict(conf_d, resume=True, n_epoch=DRIVER_EPOCHS + 1), f)
+    before = sk.logits.launches
+    driver.main(["--config", cfg_resume])
+    more = metrics_rows(metrics)[len(rows):]
+    check_metrics_rows(np, conf, more, [DRIVER_EPOCHS])
+    if sk.logits.launches - before != n_iter * (steps + evals):
+        raise AssertionError("the resumed run did not train one epoch")
+    log(f"  resume=true n_epoch={DRIVER_EPOCHS + 1}: trained epoch "
+        f"{DRIVER_EPOCHS} only ({more[0]['train_seconds']:.4f} s)")
+
+    # (e) where one epoch's time goes: loader, copies, densify, steps
+    loader, _ = driver.build_loaders(conf, *driver.build_datasets(
+        conf, "mnist"))
+    t0 = time.perf_counter()
+    n_batches = sum(1 for _ in loader)
+    log(f"  loader alone (host, {conf.n_worker} threads): "
+        f"{(time.perf_counter() - t0) * 1e3:.2f} ms for {n_batches} "
+        "batches of sparse pixels")
+    busy = breakdown(torch, lambda: train_one_epoch(
+        trainer, loader, 1, MetricsLogger(conf.task_list), conf),
+        epoch_s[1], what=f"driver epoch of {steps} steps (epoch 1)")
+    if busy is not None:
+        log(f"  driver step: device busy {busy / steps:.2f} ms of "
+            f"{epoch_s[1] / steps * 1e3:.2f} ms (idle share "
+            f"{1 - busy / (epoch_s[1] * 1e3):.3f}); card {card}")
+    return launches, data, rows
+
+
+# ---------------------------------------------------------------- parallel
+def parallel_conf(data, **over):
+    """The shipped MNIST config on the driver's store, epoch 0 of its
+    schedule (one warm-up epoch, as phase driver)."""
+    from ips_tpu_torch.config import config_from_dict
+    return config_from_dict(dict(MNIST_CONFIG, data_dir=data,
+                                 n_epoch=DRIVER_EPOCHS, n_epoch_warmup=1,
+                                 **over))
+
+
+def parallel_batches(np, conf, data_rank=0, n_data=1):
+    """The first K = steps_per_dispatch train batches of the driver's
+    epoch 0: the seeded order, this data rank's rows of each."""
+    from ips_tpu_torch.data.loader import DataLoader
+    from ips_tpu_torch.data.mnist import MegapixelMNIST
+    loader = DataLoader(MegapixelMNIST(conf, train=True), batch_size=conf.B,
+                        shuffle=True, num_workers=conf.n_worker,
+                        seed=conf.seed, process_index=data_rank,
+                        process_count=n_data)
+    batches = []
+    for b in loader:
+        batches.append(b)
+        if len(batches) == conf.steps_per_dispatch:
+            return batches
+    raise AssertionError("the store holds fewer than K batches")
+
+
+def parallel_group(torch, np, tr, conf, batches, seed, snapshots=None):
+    """One K-step fused_sparse_multi_step on ``batches`` with the driver's
+    epoch-0 lrs and generators seeded ``seed + k``; returns the per-step
+    selection indices and (losses, task losses, preds). ``snapshots``
+    collects the model's state before each selection."""
+    from ips_tpu_torch.train.loop import _labels_from_batch, _lr
+    K, dev = len(batches), tr.device
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    idxs, select = [], tr._select_impl
+
+    def recorded(*a, **kw):
+        if snapshots is not None:
+            snapshots.append({k: v.detach().cpu().clone()
+                              for k, v in tr.model.state_dict().items()})
+        out = select(*a, **kw)
+        idxs.append(out[2].cpu())
+        return out
+
+    tr._select_impl = recorded
     try:
-        data = mnist_store(tmp, DRIVER_TRAIN_IMAGES, DRIVER_TEST_IMAGES)
-        ckpt = os.path.join(tmp, "ckpt")
-        metrics = os.path.join(tmp, "metrics.jsonl")
-        conf_d = dict(MNIST_CONFIG, data_dir=data, n_epoch=DRIVER_EPOCHS,
-                      n_epoch_warmup=1, checkpoint_dir=ckpt,
-                      checkpoint_every=1, metrics_path=metrics)
-        cfg = os.path.join(tmp, "config.json")
-        with open(cfg, "w") as f:
-            json.dump(conf_d, f)
-        conf = config_from_dict(conf_d)
-        n_iter = math.ceil((conf.N - conf.M) / conf.I)
-        steps = DRIVER_TRAIN_IMAGES // conf.B
-        evals = math.ceil(DRIVER_TEST_IMAGES / conf.B)
-
-        # (a) two epochs through the CLI entry point, on the card by default
+        labels = [_labels_from_batch(conf, b) for b in batches]
+        res = tr.fused_sparse_multi_step(
+            torch.stack([put(b["input_idx"]) for b in batches]),
+            torch.stack([put(b["input_val"]) for b in batches]),
+            tuple(int(v) for v in batches[0]["img_hw"][0]),
+            torch.ones((K, len(batches[0]["input_idx"]), conf.N),
+                       dtype=torch.bool, device=dev),
+            {t: torch.stack([put(lab[t]) for lab in labels])
+             for t in labels[0]},
+            torch.ones((K, len(batches[0]["input_idx"])), device=dev),
+            [tr.new_generator(seed + k) for k in range(K)],
+            [_lr(conf, 0, DRIVER_TRAIN_IMAGES // conf.B, k)
+             for k in range(K)])
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+    finally:
+        tr._select_impl = select
+    return idxs, res
+
+
+def _state(torch, tr):
+    """Parameters, buffers and AdamW moments, on the CPU."""
+    out = {f"model/{k}": v.detach().cpu()
+           for k, v in tr.model.state_dict().items()}
+    for i, st in enumerate(tr.opt.state.values()):
+        out.update({f"opt/{i}/{k}": v.detach().cpu() for k, v in st.items()
+                    if isinstance(v, torch.Tensor)})
+    return out
+
+
+def _event_ms(torch, fn, repeats=PARALLEL_REPEATS):
+    """CUDA-event ms of one ``fn()`` over ``repeats`` after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(repeats):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / repeats
+
+
+def parallel_rank(argv):
+    """One rank of phase parallel (started by ``run_world``; gloo, every
+    rank on cuda:0): for each mesh of PARALLEL_MESHES one checked K group
+    from the seed's weights (its launches counted) and one timed group;
+    the collectives' times; the local-merge selection of batch 0."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ips_tpu_torch.ops import score_kernel as sk
+    from ips_tpu_torch.parallel import distributed as pdist
+    from ips_tpu_torch.parallel.ips_sharded import ShardedIPSTrainer
+    tmp = argv[0]
+    with open(os.path.join(tmp, "conf.json")) as f:
+        conf_d = json.load(f)
+    pdist.initialize(cpu_collectives="gloo")
+    rank = dist.get_rank()
+    out = {"device": str(pdist.local_device()), "launches": 0}
+    for data, patch in PARALLEL_MESHES:
+        tag = f"{data}x{patch}"
+        conf = parallel_conf(**dict(conf_d, mesh_data=data,
+                                    mesh_patch=patch))
+        tr = ShardedIPSTrainer(conf)
+        batches = parallel_batches(np, conf, tr.mesh.coords[0], data)
+        snaps = [] if rank == 0 else None
         sk.logits.launches = 0
+        idxs, (losses, _, _) = parallel_group(torch, np, tr, conf, batches,
+                                              PARALLEL_SEED, snaps)
+        out["launches"] += sk.logits.launches
+        out[tag] = {"idx": idxs, "losses": losses.cpu(), "state": _state(torch, tr),
+                    "snapshots": snaps, "rows": len(batches[0]["input_idx"])}
         t0 = time.perf_counter()
-        trainer, _, _ = driver.main(["--config", cfg])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = sk.logits.launches
-        peak = torch.cuda.max_memory_allocated()
-        if trainer.device.type != "cuda":
-            raise AssertionError(f"the driver ran on {trainer.device}")
-        want = n_iter * DRIVER_EPOCHS * (steps + evals)
+        parallel_group(torch, np, tr, conf, batches, PARALLEL_SEED + 100)
+        out[tag]["step_ms"] = (time.perf_counter() - t0) * 1e3 / len(batches)
+        if patch > 1:
+            # the exact-CP gather of one chunk's embeddings
+            half = torch.randn((len(batches[0]["input_idx"]),
+                                conf.I // patch, conf.D), device=tr.device)
+            out[tag]["gather_ms"] = _event_ms(torch, lambda: (
+                pdist.all_gather_rows(half, tr.mesh.patch_group, dim=1)))
+            out[tag]["gather_shape"] = (half.shape[0], conf.I, conf.D)
+        if data > 1:
+            grads = [p.grad for p in tr.model.parameters()
+                     if p.grad is not None]
+            out[tag]["allreduce_ms"] = _event_ms(
+                torch, lambda: pdist.all_reduce_sum(grads))
+            out[tag]["allreduce_elems"] = sum(g.numel() for g in grads)
+    # local merge: one selection of batch 0 over the 2 ranks' shards
+    conf = parallel_conf(**dict(conf_d, mesh_patch=2,
+                                cp_select="local_merge"))
+    tr = ShardedIPSTrainer(conf)
+    b = parallel_batches(np, conf)[0]
+    with torch.no_grad():
+        x = tr.densify(b["input_idx"], b["input_val"],
+                       tuple(int(v) for v in b["img_hw"][0]))
+        out["merge_idx"] = tr.select(
+            x, None, tr.new_generator(PARALLEL_SEED))[2].cpu()
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def nccl_rank(argv):
+    """A world of one rank on NCCL: a ShardedIPSTrainer over a 1 x 1 mesh
+    and an IPSTrainer take the same fused sparse step from the seed's
+    weights (cuDNN deterministic in both); both results, saved."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ips_tpu_torch.parallel import distributed as pdist
+    from ips_tpu_torch.parallel.ips_sharded import ShardedIPSTrainer
+    from ips_tpu_torch.train.steps import IPSTrainer
+    tmp = argv[0]
+    with open(os.path.join(tmp, "conf.json")) as f:
+        conf_d = json.load(f)
+    pdist.initialize()
+    torch.backends.cudnn.deterministic = True
+    out = {"backend": dist.get_backend()}
+    conf = parallel_conf(**conf_d)
+    batches = parallel_batches(np, conf)[:1]
+    for name, tr in (("sharded", ShardedIPSTrainer(conf)),
+                     ("single", IPSTrainer(conf))):
+        idxs, (losses, _, preds) = parallel_group(
+            torch, np, tr, conf, batches, PARALLEL_SEED)
+        out[name] = {"idx": idxs, "losses": losses.cpu(),
+                     "preds": {k: v.cpu() for k, v in preds.items()},
+                     "state": _state(torch, tr)}
+    torch.save(out, os.path.join(tmp, "nccl.pt"))
+    dist.destroy_process_group()
+
+
+def _explain(torch, conf, x, mask, seed, single, other, what):
+    """A step whose kept sets differ between one process and the ranks:
+    replay it with each side's weights (``single``, ``other``: model,
+    embed) and hold the difference to a near tie."""
+    model, embed = single
+    o_model, o_embed = other
+    pos = model.pos_table if hasattr(model, "pos_table") else None
+    report = tie_report(
+        torch, model, conf, pos, x, mask, seed, embed,
+        lambda i, e, v: o_model.scores(
+            o_embed(i) + (pos[i] if pos is not None else 0), v))
+    _check_near_tie(report, what)
+
+
+def phase_parallel(torch, np, device, card, data, driver_rows):
+    """Data and exact context parallelism at the shipped config's full
+    width, two ranks sharing cuda:0 (gloo), against one process; the
+    local merge; the CLI as two ranks against phase driver's epoch 0; a
+    one-rank NCCL world. Returns rank 0's score_logits launches over the
+    meshes' checked and timed groups and the local merge."""
+    from ips_tpu_torch.models.ips_net import IPSModel
+    from ips_tpu_torch.ops import score_kernel as sk
+    from ips_tpu_torch.parallel.ips_sharded import ips_select_cp
+    from ips_tpu_torch.parallel.launch import free_port, run_world
+    from ips_tpu_torch.train.steps import IPSTrainer
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="ips_tpu_torch_parallel_")
+    try:
+        conf_d = {"data": data}
+        with open(os.path.join(tmp, "conf.json"), "w") as f:
+            json.dump(conf_d, f)
+        conf = parallel_conf(data)
+        K, n_iter = conf.steps_per_dispatch, math.ceil(
+            (conf.N - conf.M) / conf.I)
+
+        # (a) two-rank world: 2x1 and 1x2 groups, collectives, local merge
+        t0 = time.perf_counter()
+        run_world("chip_smoke:parallel_rank", 2, [tmp],
+                  timeout=PARALLEL_TIMEOUT, python_path=[repo])
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+        log(f"  2 ranks on {ranks[0]['device']} and {ranks[1]['device']} "
+            f"(gloo): {time.perf_counter() - t0:.2f} s for the world")
+
+        # one process: the same group from the same weights
+        single = IPSTrainer(conf)
+        batches = parallel_batches(np, conf)
+        snaps = []
+        idx1, (loss1, _, _) = parallel_group(torch, np, single, conf,
+                                             batches, PARALLEL_SEED, snaps)
+        loss1 = loss1.cpu()
+        xs = [single.densify(b["input_idx"], b["input_val"],
+                             tuple(int(v) for v in b["img_hw"][0]))
+              for b in batches]
+        mask = torch.ones((conf.B, conf.N), dtype=torch.bool, device=device)
+        rows_all = torch.arange(conf.B, device=device)[:, None]
+
+        def model_from(state):
+            m = IPSModel(conf).to(device)
+            m.load_state_dict(state)
+            m.pos_table = single.pos_table
+            return m
+
+        for data_ax, patch_ax in PARALLEL_MESHES:
+            tag = f"{data_ax}x{patch_ax}"
+            r0, r1 = ranks[0][tag], ranks[1][tag]
+            bad = [k for k in r0["state"]
+                   if not torch.equal(r0["state"][k], r1["state"][k])]
+            if bad:
+                raise AssertionError(f"{tag}: ranks differ in {bad[:5]}")
+            if not torch.equal(r0["losses"], r1["losses"]):
+                raise AssertionError(f"{tag}: ranks report other losses")
+            k_rows = r0["rows"]
+            n_same = n_order = 0
+            for k in range(K):
+                for r, rk in enumerate(ranks):
+                    d = r // patch_ax
+                    rows = slice(d * k_rows, (d + 1) * k_rows)
+                    got, ref = rk[tag]["idx"][k], idx1[k][rows]
+                    if torch.equal(got, ref):
+                        n_same += 1
+                        continue
+                    if torch.equal(got.sort(1).values, ref.sort(1).values):
+                        n_order += 1        # the same kept set
+                        continue
+                    # replay step k with each side's weights
+                    m1 = model_from(snaps[k])
+                    mr = model_from(r0["snapshots"][k])
+                    x = xs[k]
+
+                    def e1(i, m=m1, x=x):
+                        return m.encode(x[rows_all, i])
+
+                    def er(i, m=mr, x=x):
+                        # the ranks' encodes: I / n_cp patches a call
+                        h = conf.I // patch_ax
+                        if patch_ax > 1 and i.shape[1] % h == 0:
+                            return torch.cat([m.encode(x[rows_all,
+                                                         i[:, j:j + h]])
+                                              for j in range(0, i.shape[1],
+                                                             h)], 1)
+                        if data_ax > 1:
+                            return torch.cat([m.encode(
+                                x[rows_all[s], i[s]]) for s in (
+                                slice(j * k_rows, (j + 1) * k_rows)
+                                for j in range(data_ax))])
+                        return m.encode(x[rows_all, i])
+
+                    with torch.inference_mode():
+                        _explain(torch, conf, x, mask, PARALLEL_SEED + k,
+                                 (m1, e1), (mr, er),
+                                 f"{tag} step {k} rank {r} selection")
+            diff = (r0["losses"] - loss1).abs().max().item()
+            diff0 = (r0["losses"][0] - loss1[0]).abs().item()
+            log(f"  {tag}: {K} steps of {k_rows} rows a rank; selections "
+                f"equal to one process's in {n_same} of {2 * K} rank-steps, "
+                f"the same sets in another order in {n_order}; "
+                f"losses {[round(v, 5) for v in r0['losses'].tolist()]} "
+                f"against {[round(v, 5) for v in loss1.tolist()]} (|diff| "
+                f"{diff0:.3e} at the first step, bound {PARALLEL_STEP0_TOL}; "
+                f"{diff:.3e} at most, bound {PARALLEL_LOSS_TOL}); params, "
+                f"AdamW moments and running statistics bitwise equal on "
+                f"both ranks ({len(r0['state'])} tensors)")
+            if diff > PARALLEL_LOSS_TOL or diff0 > PARALLEL_STEP0_TOL:
+                raise AssertionError(f"{tag}: losses off by {diff:.3e}")
+
+        # the local merge against one process's ips_select_cp(n_shards=2)
+        merge = IPSTrainer(conf)
+        encode, score = merge._enc_score_fns()
+        with torch.no_grad():
+            ref = ips_select_cp(
+                encode, score, xs[0], M=conf.M, I=conf.I, n_shards=2,
+                pos_table=merge.pos_table, mask=None,
+                generator=merge.new_generator(PARALLEL_SEED),
+                shuffle=conf.shuffle,
+                shuffle_style=conf.shuffle_style).mem_idx.cpu()
+        for r, rk in enumerate(ranks):
+            if not torch.equal(rk["merge_idx"], ref):
+                raise AssertionError(f"local merge: rank {r} differs")
+        log("  local_merge (n_shards = 2 over the 2 ranks): indices "
+            "bitwise equal to one process's ips_select_cp")
+
+        # times: two ranks share one card, so these are no multi-card speed
+        r0 = ranks[0]
+        log(f"  ms a step (host clock, K = {K} group): 2x1 "
+            f"{r0['2x1']['step_ms']:.2f}, 1x2 {r0['1x2']['step_ms']:.2f}; "
+            f"exact-CP all-gather of {tuple(r0['1x2']['gather_shape'])} "
+            f"fp32 {r0['1x2']['gather_ms']:.4f} ms, gradient all-reduce of "
+            f"{r0['2x1']['allreduce_elems']} fp32 "
+            f"{r0['2x1']['allreduce_ms']:.4f} ms (CUDA events, gloo); two "
+            f"ranks share one card: not multi-card speeds; card {card}")
+        launches = r0["launches"]
+        want = len(PARALLEL_MESHES) * K * n_iter
         if launches != want:
-            raise AssertionError(f"score kernel launched {launches} times, "
-                                 f"expected {want}")
-        rows = metrics_rows(metrics)
-        check_metrics_rows(np, conf, rows, range(DRIVER_EPOCHS))
-        epoch_s = [r["train_seconds"] for r in rows if r["split"] == "train"]
-        log(f"  driver: {DRIVER_EPOCHS} epochs of {steps} steps (K = "
-            f"{conf.steps_per_dispatch}) and {evals} eval batches in "
-            f"{wall:.2f} s; {launches} score_logits launches "
-            f"({launches / (DRIVER_EPOCHS * (steps + evals)):g} per step and "
-            f"per eval batch); trainer step {trainer.step}")
-        log(f"  driver: epoch wall {epoch_s[0]:.4f} s (epoch 0, warm-up), "
-            f"{epoch_s[1]:.4f} s (epoch 1): {epoch_s[1] / steps * 1e3:.2f} ms "
-            f"per optimizer step; peak memory {peak / 2**20:.1f} MiB "
-            f"(max_memory_allocated); card {card}")
-        for r in rows:
-            log(f"    {r['split']} epoch {r['epoch']}: " + ", ".join(
-                f"{t.name} {r[f'{t.name}_loss']:.4f}/"
-                f"{r[f'{t.name}_{t.metric}']:.3f}" for t in conf.task_list))
+            raise AssertionError(f"rank 0 launched score_logits {launches} "
+                                 f"times, expected {want}")
 
-        # (b) densify on the card against the CPU on one real batch
-        batch = next(iter(DataLoader(MegapixelMNIST(conf, train=True),
-                                     batch_size=conf.B)))
-        hw = tuple(int(v) for v in batch["img_hw"][0])
-        on_card = trainer.densify(batch["input_idx"], batch["input_val"], hw)
-        on_cpu = densify_patches(torch.from_numpy(batch["input_idx"]),
-                                 torch.from_numpy(batch["input_val"]), hw,
-                                 conf.patch_size, conf.n_chan_in,
-                                 torch.bfloat16)
-        if not torch.equal(on_card.cpu(), on_cpu):
-            raise AssertionError("densify on the card differs from the CPU")
-        idx_d = torch.from_numpy(batch["input_idx"]).to(device)
-        val_d = torch.from_numpy(batch["input_val"]).to(device)
-        dens_ms = device_ms(lambda: densify_patches(
-            idx_d, val_d, hw, conf.patch_size, conf.n_chan_in,
-            torch.bfloat16))
-        # the (int32, fp32) pairs read once, the bf16 patches written once;
-        # one add a pair
-        dens_bound, dens_by = bound_ms(
-            idx_d.numel() * 8 + on_card.numel() * 2, idx_d.numel(),
-            "float32")
-        log(f"  densify {tuple(on_card.shape)} {on_card.dtype} from "
-            f"{batch['input_idx'].shape[1]} padded pixels a row: bitwise "
-            f"equal to the CPU's; device "
-            + ("not measured" if dens_ms is None else f"{dens_ms:.4f} ms")
-            + f" (bound {dens_bound:.4f} ms, {dens_by})")
-
-        # (c) the last checkpoint into a fresh trainer, bitwise
-        check_restore(torch, trainer, conf, ckpt, DRIVER_EPOCHS)
-
-        # (d) resume with one more epoch: only epoch 2 trains (a second
-        # JSON config, since key=value overrides need pyyaml)
-        cfg_resume = os.path.join(tmp, "config_resume.json")
-        with open(cfg_resume, "w") as f:
-            json.dump(dict(conf_d, resume=True, n_epoch=DRIVER_EPOCHS + 1), f)
-        before = sk.logits.launches
-        driver.main(["--config", cfg_resume])
-        more = metrics_rows(metrics)[len(rows):]
-        check_metrics_rows(np, conf, more, [DRIVER_EPOCHS])
-        if sk.logits.launches - before != n_iter * (steps + evals):
-            raise AssertionError("the resumed run did not train one epoch")
-        log(f"  resume=true n_epoch={DRIVER_EPOCHS + 1}: trained epoch "
-            f"{DRIVER_EPOCHS} only ({more[0]['train_seconds']:.4f} s)")
-
-        # (e) where one epoch's time goes: loader, copies, densify, steps
-        loader, _ = driver.build_loaders(conf, *driver.build_datasets(
-            conf, "mnist"))
+        # (b) the CLI as two ranks, one epoch, against phase driver's
+        cfg = os.path.join(tmp, "cli.json")
+        metrics = os.path.join(tmp, "cli.jsonl")
+        with open(cfg, "w") as f:
+            json.dump(dict(MNIST_CONFIG, data_dir=data, n_epoch=1,
+                           n_epoch_warmup=1, metrics_path=metrics,
+                           multihost=True, cpu_collectives="gloo",
+                           mesh_data=2), f)
         t0 = time.perf_counter()
-        n_batches = sum(1 for _ in loader)
-        log(f"  loader alone (host, {conf.n_worker} threads): "
-            f"{(time.perf_counter() - t0) * 1e3:.2f} ms for {n_batches} "
-            "batches of sparse pixels")
-        busy = breakdown(torch, lambda: train_one_epoch(
-            trainer, loader, 1, MetricsLogger(conf.task_list), conf),
-            epoch_s[1], what=f"driver epoch of {steps} steps (epoch 1)")
-        if busy is not None:
-            log(f"  driver step: device busy {busy / steps:.2f} ms of "
-                f"{epoch_s[1] / steps * 1e3:.2f} ms (idle share "
-                f"{1 - busy / (epoch_s[1] * 1e3):.3f}); card {card}")
+        cmd = [sys.executable, "-m", "torch.distributed.run",
+               "--nproc_per_node", "2", "--nnodes", "1",
+               "--master_addr", "localhost",
+               "--master_port", str(free_port()),
+               "-m", "ips_tpu_torch.main", "--config", cfg]
+        proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
+                              timeout=PARALLEL_TIMEOUT)
+        if proc.returncode:
+            raise AssertionError("the 2-rank CLI failed:\n"
+                                 + proc.stdout[-3000:] + proc.stderr[-3000:])
+        rows = metrics_rows(metrics)
+        check_metrics_rows(np, conf, rows, [0])
+        one = driver_rows[:2]
+        diffs = [abs(a[f"{t.name}_loss"] - b[f"{t.name}_loss"])
+                 for a, b in zip(rows, one) for t in conf.task_list]
+        log(f"  CLI, 2 ranks (torch.distributed.run, mesh_data = 2, "
+            f"{time.perf_counter() - t0:.2f} s): {len(rows)} metrics lines "
+            f"from rank 0 alone; epoch-0 losses against phase driver's "
+            f"max |diff| {max(diffs):.3e} (bound {PARALLEL_CLI_TOL})")
+        for a, b in zip(rows, one):
+            log(f"    {a['split']}: " + ", ".join(
+                f"{t.name} {a[f'{t.name}_loss']:.5f}/"
+                f"{b[f'{t.name}_loss']:.5f}" for t in conf.task_list))
+        if max(diffs) > PARALLEL_CLI_TOL:
+            raise AssertionError("the 2-rank CLI's losses are off")
+
+        # (c) NCCL wiring: one rank, a 1x1 mesh, bitwise the IPSTrainer
+        run_world("chip_smoke:nccl_rank", 1, [tmp],
+                  timeout=PARALLEL_TIMEOUT, python_path=[repo])
+        nc = torch.load(os.path.join(tmp, "nccl.pt"), weights_only=False)
+        a, b = nc["sharded"], nc["single"]
+        same = (all(torch.equal(x, y) for x, y in zip(a["idx"], b["idx"]))
+                and torch.equal(a["losses"], b["losses"])
+                and all(torch.equal(a["preds"][k], b["preds"][k])
+                        for k in a["preds"])
+                and all(torch.equal(a["state"][k], b["state"][k])
+                        for k in a["state"]))
+        log(f"  {nc['backend']} world of one rank: ShardedIPSTrainer (1x1) "
+            f"step bitwise equal to IPSTrainer's: {same}")
+        if nc["backend"] != "nccl" or not same:
+            raise AssertionError("the NCCL step differs from IPSTrainer's")
         return launches
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2424,8 +2847,16 @@ def main() -> int:
         train_launches = phase_train(torch, np, device, card)
     with Phase("cli"):
         phase_cli(torch, np, pred, patches)
-    with Phase("driver"):
-        driver_launches = phase_driver(torch, np, device, card)
+    store = tempfile.mkdtemp(prefix="ips_tpu_torch_driver_")
+    try:
+        with Phase("driver"):
+            driver_launches, data, driver_rows = phase_driver(
+                torch, np, device, card, store)
+        with Phase("parallel"):
+            parallel_launches = phase_parallel(torch, np, device, card,
+                                               data, driver_rows)
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
     with Phase("camelyon"):
         camelyon_launches = phase_camelyon(torch, np, device, card)
     with Phase("camelyon_e2e"):
@@ -2442,6 +2873,7 @@ def main() -> int:
     entry["launches_by_path"] = {"predict": launches,
                                  "train": train_launches,
                                  "driver": driver_launches,
+                                 "parallel": parallel_launches,
                                  "camelyon": camelyon_launches,
                                  "camelyon_e2e": e2e_launches,
                                  "traffic": traffic_launches,

@@ -13,6 +13,15 @@ import dataclasses
 import json
 from typing import Any, Dict, List, Optional, Tuple
 
+# the parts of ROADMAP.md item 6 still to come; the config, the sharded
+# trainer and the training loop raise with these
+STREAMING_UNDER_MESH = (
+    "streaming selection (eager: false) under a mesh larger than 1x1 is "
+    "not ported yet: ROADMAP.md item 6 (streaming under a mesh)")
+ASSEMBLED_UNDER_DP = (
+    "B_seq < B with more than one data rank is not ported yet: ROADMAP.md "
+    "item 6 (the B_seq < B schedules under several data ranks)")
+
 
 @dataclasses.dataclass
 class TaskConfig:
@@ -237,10 +246,10 @@ class Config:
         Each names the ROADMAP.md queue-1 item that brings it, so that a
         config is never run with a knob silently ignored.
         """
-        if self.mesh_data > 1 or self.mesh_patch > 1:
-            raise NotImplementedError(
-                "mesh_data/mesh_patch > 1 is not ported yet: ROADMAP.md "
-                "queue 1, item 6 (parallel)")
+        if self.mesh_data * self.mesh_patch > 1 and not self.eager:
+            raise NotImplementedError(STREAMING_UNDER_MESH)
+        if self.mesh_data > 1 and self.B_seq < self.B:
+            raise NotImplementedError(ASSEMBLED_UNDER_DP)
 
     # -- convenience --------------------------------------------------------
     @property

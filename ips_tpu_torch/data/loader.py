@@ -50,20 +50,29 @@ class DataLoader:
         can batch more than one row. Within-bucket order and the order of
         batches are both shuffled when shuffle=True.
 
-        process_index/process_count: a multi-process run's share of each
-        batch; only one process is ported.
+        process_index/process_count: data rank ``process_index`` of
+        ``process_count`` loads only its contiguous batch_size /
+        process_count rows of each global batch; every rank draws the same
+        global order from ``seed``, and the ragged last batch is dropped so
+        that all ranks agree on shapes.
         """
-        if process_count > 1 or process_index != 0:
-            raise NotImplementedError(
-                "a process-sharded DataLoader (process_count > 1) is not "
-                "ported yet: ROADMAP.md queue 1, item 6 (parallel)")
+        if process_count > 1 and batch_size % process_count:
+            raise ValueError(
+                f"batch_size={batch_size} must be divisible by "
+                f"process_count={process_count}")
+        if not (0 <= process_index < max(process_count, 1)):
+            raise ValueError(
+                f"process_index={process_index} out of range for "
+                f"process_count={process_count}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.num_workers = max(0, num_workers)
-        self.drop_last = drop_last
+        self.drop_last = drop_last or process_count > 1
         self.prefetch = max(1, prefetch)
         self.collate_fn = collate_fn or _collate
+        self.process_index = process_index
+        self.process_count = max(1, process_count)
         self.bucket_fn = bucket_fn
         self._rng = np.random.default_rng(seed)
         if bucket_fn is not None:
@@ -103,12 +112,17 @@ class DataLoader:
                     for j in range(self._n_batches(len(g))))
             if self.shuffle:
                 self._rng.shuffle(batches)
-            return batches
-        idx = np.arange(len(self.dataset))
-        if self.shuffle:
-            self._rng.shuffle(idx)
-        return [idx[i * self.batch_size:(i + 1) * self.batch_size]
-                for i in range(len(self))]
+        else:
+            idx = np.arange(len(self.dataset))
+            if self.shuffle:
+                self._rng.shuffle(idx)
+            batches = [idx[i * self.batch_size:(i + 1) * self.batch_size]
+                       for i in range(len(self))]
+        if self.process_count > 1:
+            k = self.batch_size // self.process_count
+            lo = self.process_index * k
+            batches = [b[lo:lo + k] for b in batches]
+        return batches
 
     def skip_epochs(self, k: int) -> None:
         """Advance the shuffle stream past ``k`` epochs without loading

@@ -1,4 +1,4 @@
-"""Training driver CLI (counterpart of ips_tpu/main.py, one device).
+"""Training driver CLI (counterpart of ips_tpu/main.py).
 
     python -m ips_tpu_torch.main --dataset mnist \\
         --config config/mnist_config.yml data_dir=<dir> B=8 n_epoch=5
@@ -18,6 +18,19 @@ as JSON lines (``metrics_path``), per-step loss lines (``log_every``) and
 a ``torch.profiler`` trace of the first epoch (``profile_dir``) work as in
 the JAX package. The run is on ``cuda`` unless ``--device`` says
 otherwise; without a card that raises.
+
+Several processes (``multihost=true``) train one model with data and
+context parallelism (``ips_tpu_torch.parallel``): each rank is one
+device, ``mesh_data x mesh_patch`` of them, e.g. two ranks sharing one
+card (gloo; NCCL refuses two ranks on one device)::
+
+    python -m torch.distributed.run --nproc_per_node 2 \
+        -m ips_tpu_torch.main --dataset mnist --config cfg.json
+
+with ``multihost: true``, ``cpu_collectives: gloo`` and ``mesh_data: 2``
+in ``cfg.json`` (a 1 x 1 mesh takes ``mesh_data = world //
+mesh_patch``). Rank 0 alone prints, writes metrics and saves
+checkpoints; on resume every rank loads the checkpoint.
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ import numpy as np
 import torch
 
 from ips_tpu_torch.config import Config, load_config
+from ips_tpu_torch.parallel import distributed as pdist
 from ips_tpu_torch.train.loop import (check_ported_schedule, evaluate,
                                       train_one_epoch)
 from ips_tpu_torch.train.metrics import MetricsLogger
@@ -62,7 +76,10 @@ def build_datasets(conf: Config, dataset: str):
     raise ValueError(f"unknown dataset {dataset!r}")
 
 
-def build_loaders(conf: Config, train_data, test_data):
+def build_loaders(conf: Config, train_data, test_data, data_rank: int = 0,
+                  n_data: int = 1):
+    """Seeded loaders of B_seq rows a batch; data rank ``data_rank`` of
+    ``n_data`` loads its B_seq / n_data rows of each."""
     from ips_tpu_torch.data.loader import DataLoader
 
     def bucket_fn(data):
@@ -74,18 +91,49 @@ def build_loaders(conf: Config, train_data, test_data):
     train_loader = DataLoader(train_data, batch_size=conf.B_seq,
                               shuffle=True, num_workers=conf.n_worker,
                               seed=conf.seed,
-                              bucket_fn=bucket_fn(train_data))
+                              bucket_fn=bucket_fn(train_data),
+                              process_index=data_rank, process_count=n_data)
     test_loader = DataLoader(test_data, batch_size=conf.B_seq, shuffle=False,
                              num_workers=conf.n_worker,
-                             bucket_fn=bucket_fn(test_data))
+                             bucket_fn=bucket_fn(test_data),
+                             process_index=data_rank, process_count=n_data)
     return train_loader, test_loader
+
+
+def resolve_mesh(conf: Config) -> Config:
+    """A run of several processes with a 1 x 1 mesh in its config takes
+    ``mesh_data = world // mesh_patch`` (``ips_tpu/main.py:94-95``)."""
+    world = pdist.world_size()
+    if world > 1 and conf.mesh_data * conf.mesh_patch == 1:
+        return conf.replace(mesh_data=world // conf.mesh_patch)
+    return conf
 
 
 def build_trainer(conf: Config,
                   device: Optional[Union[str, torch.device]] = None
                   ) -> IPSTrainer:
-    """One-device trainer, weights drawn from ``conf.seed``."""
+    """The one-device trainer, or ``ShardedIPSTrainer`` over the
+    config's mesh when it is larger than 1 x 1 or the world has more than
+    one rank; weights drawn from ``conf.seed``."""
+    conf = resolve_mesh(conf)
+    if conf.mesh_data * conf.mesh_patch > 1 or pdist.world_size() > 1:
+        from ips_tpu_torch.parallel.ips_sharded import ShardedIPSTrainer
+        return ShardedIPSTrainer(conf, device=device)
     return IPSTrainer(conf, device=device)
+
+
+def _check_multihost_path(conf: Config) -> Config:
+    """Fail before any step where a run of several processes cannot go;
+    returns the config with its mesh resolved. The eager dense and sparse
+    schedules with B_seq == B run; streaming under a mesh and B_seq < B
+    under several data ranks raise in the config (ROADMAP.md item 6)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and not conf.multihost:
+        raise ValueError(
+            f"WORLD_SIZE={world} in the environment but multihost is "
+            "false: each process would train the whole model alone; set "
+            "multihost=true to train one model over the ranks")
+    return resolve_mesh(conf)
 
 
 def _profiler(device: torch.device):
@@ -104,14 +152,23 @@ def run(conf: Config, dataset: str,
     replaces the ones ``dataset`` names, e.g. images or slides held in
     memory (``TrafficSigns(conf, images=...)`` for traffic,
     ``CamelyonFeatures(conf, slides=...)``, or
-    ``CamelyonPatches(conf, slides=...)`` for camelyon_e2e)."""
+    ``CamelyonPatches(conf, slides=...)`` for camelyon_e2e). With
+    ``multihost`` the process joins its group first (see the module
+    docstring)."""
+    if pdist.initialize_from_config(conf, device):
+        device = pdist.local_device(device)
+    conf = _check_multihost_path(conf)
     check_ported_schedule(conf)
+    main_process = pdist.is_main_process()
     np.random.seed(conf.seed)
-    print("Used config:")
-    print(conf.pretty(), flush=True)
+    if main_process:
+        print("Used config:")
+        print(conf.pretty(), flush=True)
 
     train_data, test_data = datasets or build_datasets(conf, dataset)
-    train_loader, test_loader = build_loaders(conf, train_data, test_data)
+    train_loader, test_loader = build_loaders(
+        conf, train_data, test_data, pdist.rank() // conf.mesh_patch,
+        conf.mesh_data)
     trainer = build_trainer(conf, device)
 
     ckpt_mgr = None
@@ -139,30 +196,34 @@ def run(conf: Config, dataset: str,
             if trainer.device.type == "cuda":
                 torch.cuda.synchronize(trainer.device)
             t_epoch = time.perf_counter() - t_epoch
-        if profiling:
+        if profiling and main_process:
             os.makedirs(conf.profile_dir, exist_ok=True)
             path = os.path.join(conf.profile_dir, f"epoch_{epoch}.json")
             prof.export_chrome_trace(path)
             print(f"profiler trace written to {path}", flush=True)
+        # every rank accumulates the same global metrics; one reports them
         log_train.compute_metric()
-        log_train.print_stats(epoch, train=True, lr=lr)
-        print(f"epoch wall: {t_epoch:.2f}s", flush=True)
-        if conf.metrics_path:
-            log_train.write_jsonl(conf.metrics_path, epoch, "train", lr=lr,
-                                  train_seconds=t_epoch)
+        if main_process:
+            log_train.print_stats(epoch, train=True, lr=lr)
+            print(f"epoch wall: {t_epoch:.2f}s", flush=True)
+            if conf.metrics_path:
+                log_train.write_jsonl(conf.metrics_path, epoch, "train",
+                                      lr=lr, train_seconds=t_epoch)
 
         evaluate(trainer, test_loader, log_test, conf)
         log_test.compute_metric()
-        log_test.print_stats(epoch, train=False)
-        if conf.metrics_path:
-            log_test.write_jsonl(conf.metrics_path, epoch, "test")
+        if main_process:
+            log_test.print_stats(epoch, train=False)
+            if conf.metrics_path:
+                log_test.write_jsonl(conf.metrics_path, epoch, "test")
 
-        if ckpt_mgr and conf.checkpoint_every and \
+        if ckpt_mgr and main_process and conf.checkpoint_every and \
                 (epoch + 1) % conf.checkpoint_every == 0:
             ckpt_mgr.save(trainer, epoch + 1)
             last_saved = epoch + 1
 
-    if ckpt_mgr and last_saved != conf.n_epoch and start_epoch < conf.n_epoch:
+    if (ckpt_mgr and main_process and last_saved != conf.n_epoch
+            and start_epoch < conf.n_epoch):
         # a resumed run that had nothing left to train already has it
         ckpt_mgr.save(trainer, conf.n_epoch)
     return trainer, log_train, log_test
@@ -186,7 +247,13 @@ def main(argv=None):
     a = p.parse_args(argv)
     cfg_path = a.config or os.path.join("config", f"{a.dataset}_config.yml")
     conf = load_config(cfg_path, a.overrides)
-    return run(conf, a.dataset, a.device)
+    owned = not torch.distributed.is_initialized()
+    try:
+        return run(conf, a.dataset, a.device)
+    finally:
+        # the process group this run joined ends with it
+        if owned and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ips_tpu_torch.constants import NEG_INF
+from ips_tpu_torch.parallel.mesh import rand_rows
 
 
 def pos_enc_1d_np(D: int, len_seq: int) -> np.ndarray:
@@ -52,7 +53,8 @@ def dropout(x: torch.Tensor, p: float, train: bool,
         return x
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    # the global batch's mask under data parallelism (parallel/mesh.py)
+    keep = rand_rows(x.shape, generator, x.device) < 1.0 - p
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 

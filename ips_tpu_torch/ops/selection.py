@@ -21,10 +21,12 @@ variants, which select the same patches:
 
 ``ips_select_streaming_step`` is one iteration over a chunk the caller
 brought to the device (the streaming selection of
-``train/streaming.py``). The reference's ``unroll`` (a ``lax.scan``
-unroll factor) has no meaning in an eager loop, and ``encode_wrap``
-belongs to context parallelism (ROADMAP.md queue 1, item 6 (parallel));
-neither is here.
+``train/streaming.py``). ``encode_wrap`` places every selection encode:
+exact context parallelism splits each chunk's patches over the ranks of
+a patch group and gathers the embeddings back
+(``parallel/ips_sharded.py``). The reference's ``unroll`` (a
+``lax.scan`` unroll factor) has no meaning in an eager loop and is not
+here.
 """
 
 from __future__ import annotations
@@ -102,7 +104,10 @@ def ips_select(encode_fn: EncodeFn, score_fn: ScoreFn,
                shuffle: bool = False, shuffle_style: str = "batch",
                return_emb: bool = False, prepermute: bool = False,
                preencode: bool = False,
-               preencode_chunked: bool = False) -> SelectionResult:
+               preencode_chunked: bool = False,
+               encode_wrap: Optional[Callable[[EncodeFn, torch.Tensor],
+                                              torch.Tensor]] = None
+               ) -> SelectionResult:
     """Iterative Patch Selection over a resident patch tensor.
 
     Args:
@@ -119,8 +124,17 @@ def ips_select(encode_fn: EncodeFn, score_fn: ScoreFn,
         rows per chunk (one extra (B, N, D) table on the device).
       preencode_chunked: build that table in contiguous I-slices, padded
         to a multiple of I, instead of one encode of all N.
+      encode_wrap: optional (encode_fn, x) -> emb applied at every encode,
+        the pre-encoded and pre-permuted ones included. Encoding is per
+        patch, so it changes where patches are encoded, not what.
     """
     B, N = patches.shape[:2]
+    if encode_wrap is not None:
+        base_encode_fn = encode_fn
+
+        def encode_fn(x):  # noqa: F811 - the wrapped encode
+            return encode_wrap(base_encode_fn, x)
+
     device = patches.device
     full_mask = (torch.ones((B, N), dtype=torch.bool, device=device)
                  if mask is None else mask)

@@ -13,6 +13,8 @@ from typing import Optional
 
 import torch
 
+from ips_tpu_torch.parallel.mesh import rand_rows
+
 
 def make_permutation(generator: Optional[torch.Generator], B: int, N: int,
                      mask: Optional[torch.Tensor], shuffle: bool,
@@ -39,7 +41,8 @@ def make_permutation(generator: Optional[torch.Generator], B: int, N: int,
         u = torch.rand((1, N), generator=generator,
                        device=gen_device).expand(B, N)
     elif shuffle_style == "instance":
-        u = torch.rand((B, N), generator=generator, device=gen_device)
+        # the global batch's draw under data parallelism (parallel/mesh.py)
+        u = rand_rows((B, N), generator, gen_device)
     else:
         raise ValueError(f"unknown shuffle_style {shuffle_style!r}")
     u = u.to(device)

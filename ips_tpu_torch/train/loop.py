@@ -45,8 +45,14 @@ one. The streams themselves differ from ``jax.random``'s.
 Loader batches are moved to the device ahead of use, at most
 ``prefetch_depth`` in flight (at least K + 1 for a grouped schedule and
 r * K + 1 for an assembled one, whose group is stacked on the device),
-from pinned host memory with ``non_blocking=True``. The multi-host
-schedules are not ported and raise.
+from pinned host memory with ``non_blocking=True``.
+
+Under data parallelism (``parallel.ips_sharded.ShardedIPSTrainer``) each
+rank's loader yields its B_seq / n_dp rows of every batch, and the
+labels and row weights kept for the metrics are gathered to the global
+batch (``host_allgather``, where ``ips_tpu/train/loop.py`` gathers
+them), so every rank accumulates the same global metrics. The B_seq < B
+schedules with more than one data rank are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -58,7 +64,8 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ips_tpu_torch.config import Config
+from ips_tpu_torch.config import ASSEMBLED_UNDER_DP, Config
+from ips_tpu_torch.parallel.distributed import host_allgather, is_main_process
 from ips_tpu_torch.train.schedule import warmup_cosine_lr
 from ips_tpu_torch.train.steps import IPSTrainer
 from ips_tpu_torch.utils.profiling import EfficiencyTracker
@@ -84,13 +91,25 @@ def eval_base_seed(seed: int) -> int:
     return seed * 7_000_003 + 1
 
 
-def check_ported_schedule(conf: Config) -> None:
-    """Raise for a schedule the port does not have, before any step."""
-    if conf.multihost or conf.num_processes > 1:
-        raise NotImplementedError(
-            "multi-process training (the multi-host schedules, "
-            "_epoch_assembled_mh among them) is not ported yet: "
-            "ROADMAP.md queue 1, item 6 (parallel)")
+def _n_data(trainer) -> int:
+    return getattr(trainer, "n_dp", 1)
+
+
+def check_ported_schedule(conf: Config, trainer=None) -> None:
+    """Raise for a schedule the port does not have, before any step: the
+    B_seq < B schedules under several data ranks (``_epoch_assembled_mh``
+    and its helpers there)."""
+    if conf.B_seq < conf.B and _n_data(trainer) > 1:
+        raise NotImplementedError(ASSEMBLED_UNDER_DP)
+
+
+def _global_host(trainer, labels, row_weights):
+    """The global batch's labels and row weights, for the metrics: a
+    data-parallel trainer's steps return the global predictions."""
+    if _n_data(trainer) == 1:
+        return labels, row_weights
+    return host_allgather((labels, row_weights), trainer.mesh.data_group,
+                          trainer.device)
 
 
 def _np(x) -> np.ndarray:
@@ -142,22 +161,26 @@ def _batch_mask(batch: Dict[str, np.ndarray], B: int, N: int) -> np.ndarray:
 
 def _maybe_log_step(conf: Config, data_it: int, loss, lr: float):
     """Optional per-step stdout logging (conf.log_every; waits for the
-    device)."""
-    if conf.log_every and (data_it + 1) % conf.log_every == 0:
+    device), by rank 0 of a run of several processes."""
+    if (conf.log_every and (data_it + 1) % conf.log_every == 0
+            and is_main_process()):
         print(f"step {data_it + 1}: loss {float(_np(loss)):.5f}, "
               f"lr {lr:.3g}", flush=True)
 
 
-def _pad_loader_batch(conf: Config, batch: Dict[str, np.ndarray]):
-    """Zero-pad a partial last loader batch up to B_seq; returns (batch,
-    row_weights). Padded rows carry weight 0 and an all-False patch mask,
-    so they never reach selection, loss or metrics."""
+def _pad_loader_batch(conf: Config, batch: Dict[str, np.ndarray],
+                      rows: Optional[int] = None):
+    """Zero-pad a partial last loader batch up to ``rows`` (B_seq, or a
+    data rank's B_seq / n_dp share); returns (batch, row_weights). Padded
+    rows carry weight 0 and an all-False patch mask, so they never reach
+    selection, loss or metrics."""
     ref_key = "input" if "input" in batch else "input_idx"
     n = batch[ref_key].shape[0]
+    rows = conf.B_seq if rows is None else rows
     weights = np.ones(n, np.float32)
-    if n == conf.B_seq:
+    if n == rows:
         return batch, weights
-    pad = conf.B_seq - n
+    pad = rows - n
     N = batch["input"].shape[1] if "input" in batch else conf.N
     out = {}
     for k, v in batch.items():
@@ -241,6 +264,11 @@ def _prefetched(iterable, prepare, depth: int):
         yield buf.popleft()
 
 
+def _local_rows(trainer, conf: Config) -> int:
+    """This rank's share of a loader batch's B_seq rows."""
+    return conf.B_seq // _n_data(trainer)
+
+
 def _put_common(trainer, labels, row_weights) -> dict:
     put = partial(_to_device, device=trainer.device)
     return {"labels": {k: put(v) for k, v in labels.items()},
@@ -251,9 +279,11 @@ def _prep_fused(trainer: IPSTrainer, conf: Config, base: int, ib) -> _Prepped:
     """A dense loader batch on the device; a sparse one is densified there
     (the dense schedules' form of a sparse batch)."""
     it, batch = ib
-    batch, row_weights = _pad_loader_batch(conf, batch)
+    batch, row_weights = _pad_loader_batch(conf, batch,
+                                           _local_rows(trainer, conf))
     labels = _labels_from_batch(conf, batch)
     payload = _put_common(trainer, labels, row_weights)
+    labels, row_weights = _global_host(trainer, labels, row_weights)
     if "input" in batch:
         B_seq, N = batch["input"].shape[:2]
         payload["patches"] = _to_device(batch["input"], trainer.device)
@@ -273,7 +303,8 @@ def _prep_host(trainer: IPSTrainer, conf: Config, base: int,
     """A loader batch for streaming selection: the patches stay in host
     memory, the labels and row weights go to the device."""
     it, batch = ib
-    batch, row_weights = _pad_loader_batch(conf, batch)
+    batch, row_weights = _pad_loader_batch(conf, batch,
+                                           _local_rows(trainer, conf))
     labels = _labels_from_batch(conf, batch)
     payload = _put_common(trainer, labels, row_weights)
     payload.update(patches=batch["input"], mask=batch.get("mask"),
@@ -288,10 +319,12 @@ def _prep_sparse(trainer: IPSTrainer, conf: Config, base: int,
     it, batch = ib
     if "input_idx" not in batch:
         return _prep_fused(trainer, conf, base, ib)
-    batch, row_weights = _pad_loader_batch(conf, batch)
+    batch, row_weights = _pad_loader_batch(conf, batch,
+                                           _local_rows(trainer, conf))
     labels = _labels_from_batch(conf, batch)
     put = partial(_to_device, device=trainer.device)
     payload = _put_common(trainer, labels, row_weights)
+    labels, row_weights = _global_host(trainer, labels, row_weights)
     payload.update(
         idx=put(batch["input_idx"]), val=put(batch["input_val"]),
         mask=put(_batch_mask(batch, batch["input_idx"].shape[0], conf.N)),
@@ -572,7 +605,7 @@ def train_one_epoch(trainer: IPSTrainer, loader, epoch: int, logger,
                     conf: Config,
                     tracker: Optional[EfficiencyTracker] = None) -> float:
     """One training epoch; returns the last step's lr."""
-    check_ported_schedule(conf)
+    check_ported_schedule(conf, trainer)
     steps_per_epoch = len(loader)
     base = train_base_seed(conf.seed, epoch)
     tracker = tracker or EfficiencyTracker(conf, trainer.device)
@@ -707,7 +740,7 @@ def _eval_assembled(trainer, loader, logger, conf, base):
 
 def evaluate(trainer: IPSTrainer, loader, logger, conf: Config) -> None:
     """One evaluation pass over ``loader``."""
-    check_ported_schedule(conf)
+    check_ported_schedule(conf, trainer)
     steps_per_epoch = len(loader)
     base = eval_base_seed(conf.seed)
     if conf.eager and conf.B_seq == conf.B:

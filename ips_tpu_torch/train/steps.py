@@ -53,15 +53,18 @@ Tensors = Dict[str, torch.Tensor]
 
 
 def compute_task_losses(conf: Config, preds: Tensors, labels: Tensors,
-                        weights: torch.Tensor
+                        weights: torch.Tensor,
+                        w_sum: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, Tensors]:
     """Per-task losses averaged into one scalar.
 
     softmax tasks: NLL of log(pred + eps); sigmoid tasks: BCE over the
     flattened outputs, clamped to [1e-7, 1 - 1e-7]. ``weights`` (B,)
-    masks padded instances: weighted means over max(sum(w), 1).
+    masks padded instances: weighted means over max(sum(w), 1). Under
+    data parallelism ``w_sum`` is the global batch's sum(w), and the
+    losses are this rank's shares of the global ones.
     """
-    w_sum = torch.clamp(weights.sum(), min=1.0)
+    w_sum = torch.clamp(weights.sum() if w_sum is None else w_sum, min=1.0)
     task_losses = {}
     total = 0.0
     for task in conf.task_list:
@@ -206,6 +209,11 @@ class IPSTrainer:
         table_bytes = math.prod(shape) * dtype.itemsize
         return table_bytes > 96 * 2**20
 
+    def _selection_encode_wrap(self):
+        """The placement of every selection encode (``ips_select``'s
+        ``encode_wrap``): None, one device encodes everything."""
+        return None
+
     def _select_impl(self, patches: torch.Tensor, mask: torch.Tensor,
                      generator: Optional[torch.Generator] = None,
                      return_emb: bool = False,
@@ -233,7 +241,8 @@ class IPSTrainer:
                          # a conv encoder pre-encodes I patches at a time,
                          # which bounds its activations; the projector
                          # keeps the single encode
-                         preencode_chunked=conf.is_image)
+                         preencode_chunked=conf.is_image,
+                         encode_wrap=self._selection_encode_wrap())
         out = (res.mem_patch, res.mem_pos, res.mem_idx, res.mem_mask)
         return out + (res.mem_emb,) if return_emb else out
 
@@ -271,8 +280,15 @@ class IPSTrainer:
         else:
             preds = self.model(mem_patch, mem_pos, attn_mask, train=True,
                                weights=weights, generator=generator)
-        loss, task_losses = compute_task_losses(conf, preds, labels, weights)
+        loss, task_losses = self._task_losses(preds, labels, weights)
         return loss, task_losses, preds
+
+    def _task_losses(self, preds, labels, weights):
+        return compute_task_losses(self.conf, preds, labels, weights)
+
+    def _reduce_grads(self) -> None:
+        """Between the backward and the optimizer step: nothing on one
+        device (the data-parallel trainer sums the gradients here)."""
 
     def _grad_forward(self, mem_patch, mem_pos, attn_mask, weights,
                       generator):
@@ -315,6 +331,7 @@ class IPSTrainer:
         out = self._loss_and_aux(mem_patch, mem_pos, mem_mask, labels,
                                  weights, generator)
         out[0].backward()
+        self._reduce_grads()
         for group in self.opt.param_groups:
             group["lr"] = lr
         self.opt.step()
@@ -340,8 +357,7 @@ class IPSTrainer:
     def eval_step(self, mem_patch, mem_pos, mem_mask, labels, weights):
         attn_mask = mem_mask if self.conf.mask_padding else None
         preds = self.model(mem_patch, mem_pos, attn_mask, train=False)
-        loss, task_losses = compute_task_losses(self.conf, preds, labels,
-                                                weights)
+        loss, task_losses = self._task_losses(preds, labels, weights)
         return loss, task_losses, preds
 
     def _reuse_eval_emb(self) -> bool:
@@ -359,8 +375,7 @@ class IPSTrainer:
         attn_mask = mem_mask if self.conf.mask_padding else None
         emb = mem_emb if mem_pos is None else mem_emb + mem_pos
         preds = self.model.predict(self.model.aggregate(emb, attn_mask))
-        loss, task_losses = compute_task_losses(self.conf, preds, labels,
-                                                weights)
+        loss, task_losses = self._task_losses(preds, labels, weights)
         return loss, task_losses, preds
 
     @torch.no_grad()

@@ -649,3 +649,30 @@ def test_exported_program_on_card_matches_live(cuda, tmp_path):
     ref = live.predict(x)
     np.testing.assert_array_equal(out["selected_idx"], ref["selected_idx"])
     np.testing.assert_allclose(out["t"], ref["t"], rtol=0, atol=1e-5)
+
+
+# ------------------------------------------- collectives of the parallel port
+@pytest.mark.parametrize("backend,world", [("gloo", 2), ("nccl", 1)])
+def test_collectives_on_card_are_exact(cuda, tmp_path, backend, world):
+    """all_gather_rows, the BatchNorm's differentiable group sum (and its
+    backward) and the gradient all-reduce on CUDA tensors, over 2 gloo
+    ranks sharing cuda:0 and a 1-rank NCCL group, bitwise equal to the
+    same sums in one process."""
+    import os
+
+    from ips_tpu_torch.parallel.launch import run_world
+    from torch_parallel_worker import collective_parts
+    run_world("torch_parallel_worker:collectives", world,
+              [str(tmp_path), backend], timeout=120,
+              python_path=[os.path.dirname(os.path.abspath(__file__))])
+    parts, ws = collective_parts(world, cuda)
+    total = parts[0] if world == 1 else parts[0] + parts[1]
+    dtotal = ws[0] if world == 1 else ws[0] + ws[1]
+    for r in range(world):
+        got = torch.load(tmp_path / f"{backend}{r}.pt")
+        assert got["device"] == "cuda:0"
+        assert torch.equal(got["gathered"], torch.cat(parts, 1).cpu())
+        assert torch.equal(got["summed"], total.cpu())
+        assert torch.equal(got["dsum"], dtotal.cpu())
+        assert torch.equal(got["grads"][0], (total * 0.5).cpu())
+        assert torch.equal(got["grads"][1], (2 * total * 0.5).cpu())

@@ -57,7 +57,11 @@ def test_sources_found():
             "ips_tpu_torch/data/traffic_synth.py",
             "ips_tpu_torch/scripts/traffic_learning.py",
             "ips_tpu_torch/models/quant.py",
-            "ips_tpu_torch/export.py"} <= rel
+            "ips_tpu_torch/export.py",
+            "ips_tpu_torch/parallel/mesh.py",
+            "ips_tpu_torch/parallel/distributed.py",
+            "ips_tpu_torch/parallel/ips_sharded.py",
+            "ips_tpu_torch/parallel/launch.py"} <= rel
 
 
 @pytest.mark.parametrize("path", SOURCES,

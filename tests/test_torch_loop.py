@@ -293,11 +293,29 @@ def test_densify_inside_matches_dense_batches(data_dir):
 
 # ------------------------------------------------------------- error paths
 def test_unported_schedules_raise(data_dir):
-    c = t_config(loop_conf(data_dir, multihost=True))
+    """B_seq < B under several data ranks waits for item 6; the loop
+    raises before any step (a trainer of 2 data ranks, in name only)."""
+    c = t_config(loop_conf(data_dir, B_seq=2, sparse_input=False))
     tr = IPSTrainer(c, device="cpu")
-    loader = DataLoader(MegapixelMNIST(c, train=False), batch_size=4)
+    tr.n_dp = 2
+    loader = DataLoader(MegapixelMNIST(c, train=False), batch_size=2)
     with pytest.raises(NotImplementedError, match="item 6"):
         train_one_epoch(tr, loader, 0, MetricsLogger(c.task_list), c)
     with pytest.raises(NotImplementedError, match="item 6"):
-        DataLoader(MegapixelMNIST(c, train=False), batch_size=4,
-                   process_index=0, process_count=2)
+        evaluate(tr, loader, MetricsLogger(c.task_list), c)
+
+
+def test_multihost_settings_run(data_dir):
+    """multihost and a process-sharded loader are ported: with one
+    process the run is the single-process one, and a data rank's loader
+    holds its rows of each batch."""
+    c = t_config(loop_conf(data_dir, multihost=True))
+    tr = IPSTrainer(c, device="cpu")
+    loader = DataLoader(MegapixelMNIST(c, train=False), batch_size=4)
+    train_one_epoch(tr, loader, 0, MetricsLogger(c.task_list), c)
+    assert tr.step == len(loader)
+    half = DataLoader(MegapixelMNIST(c, train=False), batch_size=4,
+                      process_index=1, process_count=2)
+    full = next(iter(loader))
+    assert np.array_equal(next(iter(half))["input_idx"],
+                          full["input_idx"][2:])
