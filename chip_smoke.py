@@ -89,7 +89,28 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                selection's peak memory on a 1280- and a 2304-tile slide
                within 64 MiB, ms per step, peak memory and the device's
                idle share over a profiled epoch;
- 11. traffic — the traffic-sign path through the driver at the full width
+ 11. parallel_camelyon — streaming selection under a mesh and B_seq < B
+               over data ranks at the full width of both camelyon configs,
+               two ranks sharing cuda:0 over gloo, each making phase
+               camelyon_e2e's and phase camelyon's corpora from the seed:
+               (a) the streamed selection of a 2304-tile train slide at
+               1x2, every stage of each rank holding 128 of each chunk's
+               256 tiles, its kept indices against one process's (or
+               parted at a near tie), 8 launches a rank, each rank's peak
+               beside one process's and no larger; (b) camelyon_e2e
+               through ``main.run`` at 2x1 for one epoch (one optimizer
+               step of B = 8, 4 slides a rank, the 8 train slides as the
+               test set, so that one full eval batch runs): the loss
+               against one process's step on the same slides in the same
+               order, every kept set, the eval predictions, state bitwise
+               equal on both ranks, rank 0 alone writing metrics; (c)
+               camelyon features through ``main.run`` at 2x1 for one
+               epoch (one K = 4 group of B = 16 steps, 8 slots a rank):
+               per-step losses against one process's on the same batches,
+               state bitwise equal, the test set's buckets of fewer than
+               B slides evaluating nothing (``drop_last``); ms a step and
+               peaks, which are no multi-card speeds;
+ 12. traffic — the traffic-sign path through the driver at the full width
                of config/traffic_config.yml (1200x1600 RGB, N = 192
                patches of 100x100x3, M = 10, I = 32, B = 16, ResNet-18
                with all 4 blocks, D = 512, bf16, fp32 host normalization,
@@ -102,14 +123,14 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                scorer's, a train item's host time (augment, normalize and
                patchify), ms per step, peak memory and a profiler
                breakdown of one epoch with the device's idle share;
- 12. hostops — the C++ host library (csrc/hostops.cpp) built with g++ on
+ 13. hostops — the C++ host library (csrc/hostops.cpp) built with g++ on
                this machine (build seconds), ``densify_patchify``,
                ``patchify_dense`` and ``gather_patches`` (float32, into a new
                array and into a pinned buffer) bitwise against their numpy
                versions at the MNIST shapes (16 images of 1500x1500, 900
                patches of 50x50, a chunk of I = 100), host ms of each
                against numpy's;
- 13. int8    — int8 selection (``select_dtype: int8``) at the full MNIST
+ 14. int8    — int8 selection (``select_dtype: int8``) at the full MNIST
                width: one select against the plain scorer's int8 selection
                (near-ties allowed), its device ms against the bf16
                selection's on the same batch; 4 ``Predictor`` requests (8
@@ -120,7 +141,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                device's idle share); one streamed int8 selection of a
                camelyon_e2e slide at full width (ResNet-50/2 bottleneck
                blocks, uint8 224x224 tiles) and its peak;
- 14. export  — the export CLI's ``main`` (ips_tpu_torch/export.py) on
+ 15. export  — the export CLI's ``main`` (ips_tpu_torch/export.py) on
                the full-width MNIST Predictor on the card with
                ``--selftest``; the artifact
                loaded in a fresh process that imports only
@@ -130,7 +151,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                probabilities within 1e-5; artifact size, load seconds,
                request latency against the live Predictor; the operator's
                dispatch against the direct ctypes call;
- 15. preprocess — the slide-preprocessing pipeline and pretrained weights
+ 16. preprocess — the slide-preprocessing pipeline and pretrained weights
                (``ips_tpu_torch.data.camelyon`` synth, otsu, foreground,
                extract_feat; ``models.pretrained``): 4 train and 2 test
                slides of 5600x5600 made in memory from the seed; otsu
@@ -146,7 +167,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                synchronous loop, the first 8 tiles within a stated bf16
                tolerance of the CPU forward; then one evaluation of the
                camelyon feature config on those features;
- 16. conv_probe — the fused BasicBlock kernel against its plain version
+ 17. conv_probe — the fused BasicBlock kernel against its plain version
                at the layer1 shapes (1600, 13, 13, 64), paired
                (800, 13, 13, 128), a ragged one and layer2_block1's
                (1600, 7, 7, 128), timed in phase kernels; the main
@@ -349,6 +370,19 @@ PARALLEL_REPEATS = 20
 PARALLEL_STEP0_TOL = 1e-3
 PARALLEL_LOSS_TOL = 1e-2
 PARALLEL_CLI_TOL = 1e-2
+
+# phase parallel_camelyon: the world's deadline in seconds; (a) streams
+# this train slide of phase camelyon_e2e's corpus (bucket 2304). (b)'s
+# train loss against one process's step on the same 8 slides: the ranks
+# encode 4 rows in bf16 where one process encodes 8, and sum the global
+# statistics and the gradient in two halves, so they round apart (phase
+# parallel read 8e-5 at MNIST's first step); the eval predictions after
+# the step also carry AdamW's first moves, about lr * sign(g), of
+# gradients within rounding of 0 (phase parallel: 3.3e-3 over a group).
+PC_TIMEOUT = 480
+PC_SLIDE = 1
+PC_E2E_LOSS_TOL = 1e-3
+PC_PRED_TOL = 1e-2
 
 
 def log(msg: str) -> None:
@@ -1991,6 +2025,448 @@ def phase_camelyon_e2e(torch, np, device, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# phase parallel_camelyon: streaming under a mesh and B_seq < B over data
+# ranks at the full width of both camelyon configs
+def slot_loaders(conf, train, test):
+    """One process's loaders fed the 2-rank run's optimizer batches: the
+    bucketed loaders of B rows (``drop_last``, as a data-rank-sharded
+    loader forces) handed out one B_seq-row loader batch at a time."""
+    from ips_tpu_torch.data.loader import DataLoader
+
+    class SlotLoader:
+        def __init__(self, inner):
+            self.inner = inner
+
+        def __len__(self):
+            return len(self.inner) * (conf.B // conf.B_seq)
+
+        def __iter__(self):
+            for b in self.inner:
+                for j in range(0, conf.B, conf.B_seq):
+                    yield {k: v[j:j + conf.B_seq] for k, v in b.items()}
+
+    return tuple(SlotLoader(DataLoader(
+        ds, batch_size=conf.B, shuffle=shuffle, num_workers=conf.n_worker,
+        seed=conf.seed, bucket_fn=ds.bucket_of, drop_last=True))
+        for ds, shuffle in ((train, True), (test, False)))
+
+
+class StepRecorder:
+    """Every ``MetricsLogger.update`` (train steps, then eval batches) and
+    every streamed selection's kept indices, in order, while active."""
+
+    def __init__(self):
+        self.updates, self.kept = [], []
+
+    def __enter__(self):
+        import numpy as np
+        from ips_tpu_torch.train.metrics import MetricsLogger
+        from ips_tpu_torch.train.steps import IPSTrainer
+        self._saved = MetricsLogger.update, IPSTrainer.select_streaming
+        update, select = self._saved
+        rec = self
+
+        def recorded_update(logger, losses, preds, labels, weights=None):
+            rec.updates.append((
+                {k: float(v) for k, v in losses.items()},
+                {k: [float(x) for x in np.ravel(v)]
+                 for k, v in preds.items()}))
+            return update(logger, losses, preds, labels, weights=weights)
+
+        def recorded_select(trainer, *a, **kw):
+            out = select(trainer, *a, **kw)
+            rec.kept.append(out[2].cpu())
+            return out
+
+        MetricsLogger.update = recorded_update
+        IPSTrainer.select_streaming = recorded_select
+        return self
+
+    def __exit__(self, *exc):
+        from ips_tpu_torch.train.metrics import MetricsLogger
+        from ips_tpu_torch.train.steps import IPSTrainer
+        MetricsLogger.update, IPSTrainer.select_streaming = self._saved
+        return False
+
+
+def camelyon_corpus(conf):
+    """Phase camelyon's corpus, made from the seed: the train and test
+    ``CamelyonFeatures`` in memory."""
+    from ips_tpu_torch.data.camelyon.dataset import (CamelyonFeatures,
+                                                     synth_slides)
+    return tuple(
+        CamelyonFeatures(conf, train, slides=dict(synth_slides(
+            n, conf.n_chan_in, n_range, seed=seed)))
+        for train, (n, n_range), seed in (
+            (True, CAMELYON_TRAIN, SEED), (False, CAMELYON_TEST, SEED + 1)))
+
+
+def pc_e2e_conf(**over):
+    """Phase camelyon_e2e's config for one epoch (one optimizer step of
+    B = 8 on its 8 train slides)."""
+    from ips_tpu_torch.config import config_from_dict
+    return config_from_dict(dict(
+        CAMELYON_E2E_CONFIG, grad_encode_chunk=E2E_GRAD_ENCODE_CHUNK,
+        n_epoch=1, n_epoch_warmup=1, **over))
+
+
+def pc_camelyon_conf(**over):
+    from ips_tpu_torch.config import config_from_dict
+    return config_from_dict(dict(CAMELYON_CONFIG, n_epoch=1,
+                                 n_epoch_warmup=1, **over))
+
+
+def _peak_of(torch, fn):
+    """``fn()``'s result, its synchronised ms and its peak allocation
+    above the allocation it started from."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, (time.perf_counter() - t0) * 1e3,
+            torch.cuda.max_memory_allocated() - base)
+
+
+def parallel_camelyon_rank(argv):
+    """One rank of phase parallel_camelyon (``run_world``; gloo, every rank
+    on cuda:0): (a) the streamed selection of the 2304-tile train slide at
+    1x2, its stages and peak; (b) ``main.run`` of camelyon_e2e at 2x1 for
+    one epoch, the 8 train slides as the test set too; (c) ``main.run`` of
+    camelyon features at 2x1 for one epoch. Saves what each computed."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from ips_tpu_torch import main as driver
+    from ips_tpu_torch.ops import score_kernel as sk
+    from ips_tpu_torch.parallel import distributed as pdist
+    from ips_tpu_torch.parallel.ips_sharded import ShardedIPSTrainer
+    from ips_tpu_torch.train.streaming import StreamingSelector
+    tmp = argv[0]
+    pdist.initialize(cpu_collectives="gloo")
+    rank = dist.get_rank()
+    mh = dict(multihost=True, cpu_collectives="gloo")
+    out = {"device": str(pdist.local_device()), "launches": {}}
+
+    # (a) the streamed selection at 1x2
+    conf = pc_e2e_conf(mesh_patch=2, **mh)
+    _, train_ds, _ = e2e_corpus(conf)
+    item = train_ds[PC_SLIDE]
+    staged = []
+    host_tiles = StreamingSelector._host_tiles
+
+    def recorded(self, patches, idx):
+        staged.append(tuple(idx.shape))
+        return host_tiles(self, patches, idx)
+
+    StreamingSelector._host_tiles = recorded
+    tr = ShardedIPSTrainer(conf)
+    sk.logits.launches = 0
+    try:
+        sel, ms, peak = _peak_of(torch, lambda: tr.select_streaming(
+            item["input"][None], item["mask"][None],
+            tr.new_generator(SEED)))
+    finally:
+        StreamingSelector._host_tiles = host_tiles
+    out["launches"]["a"] = sk.logits.launches
+    out["a"] = {"idx": sel[2].cpu(), "ms": ms, "peak": peak,
+                "staged": staged}
+    del tr, sel
+    torch.cuda.empty_cache()
+
+    # (b) camelyon_e2e through the driver at 2x1, one optimizer step
+    conf = pc_e2e_conf(mesh_data=2, metrics_path=os.path.join(
+        tmp, "e2e.jsonl"), **mh)
+    sk.logits.launches = 0
+    with StepRecorder() as rec:
+        trainer, _, _ = driver.run(conf, "camelyon_e2e",
+                                   datasets=(train_ds, train_ds))
+    torch.cuda.synchronize()
+    out["launches"]["b"] = sk.logits.launches
+    out["b"] = {"updates": rec.updates, "kept": rec.kept,
+                "state": _state(torch, trainer), "step": trainer.step,
+                "peak": torch.cuda.max_memory_allocated()}
+    del trainer, train_ds, item
+    torch.cuda.empty_cache()
+
+    # (c) camelyon features through the driver at 2x1, one K = 4 group
+    conf = pc_camelyon_conf(mesh_data=2, metrics_path=os.path.join(
+        tmp, "camelyon.jsonl"), **mh)
+    datasets = camelyon_corpus(conf)
+    torch.cuda.reset_peak_memory_stats()
+    sk.logits.launches = 0
+    with StepRecorder() as rec:
+        trainer, _, _ = driver.run(conf, "camelyon", datasets=datasets)
+    torch.cuda.synchronize()
+    out["launches"]["c"] = sk.logits.launches
+    out["c"] = {"updates": rec.updates, "state": _state(torch, trainer),
+                "step": trainer.step,
+                "peak": torch.cuda.max_memory_allocated()}
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _model_from(torch, conf, state, device):
+    from ips_tpu_torch.models.ips_net import IPSModel
+    m = IPSModel(conf).to(device)
+    m.load_state_dict(state)
+    return m
+
+
+def phase_parallel_camelyon(torch, np, device, card):
+    """Streaming under a mesh and B_seq < B over data ranks at the full
+    width of both camelyon configs, two ranks sharing cuda:0 (gloo),
+    against one process on the same slides and batches. Returns rank 0's
+    score_logits launches in (a), (b) and (c)."""
+    from ips_tpu_torch import main as driver
+    from ips_tpu_torch.data.loader import DataLoader
+    from ips_tpu_torch.parallel.launch import run_world
+    from ips_tpu_torch.train.loop import (eval_base_seed, fold_seed,
+                                          train_base_seed, train_one_epoch)
+    from ips_tpu_torch.train.metrics import MetricsLogger
+    from ips_tpu_torch.train.steps import IPSTrainer
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="ips_tpu_torch_parallel_camelyon_")
+    try:
+        t0 = time.perf_counter()
+        run_world("chip_smoke:parallel_camelyon_rank", 2, [tmp],
+                  timeout=PC_TIMEOUT, python_path=[repo])
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                            weights_only=False) for r in range(2)]
+        log(f"  2 ranks on {ranks[0]['device']} and {ranks[1]['device']} "
+            f"(gloo): {time.perf_counter() - t0:.2f} s for the world; two "
+            "ranks share one card: no number below is a multi-card speed")
+        for part in "bc":
+            bad = [k for k in ranks[0][part]["state"] if not torch.equal(
+                ranks[0][part]["state"][k], ranks[1][part]["state"][k])]
+            if bad:
+                raise AssertionError(f"({part}) ranks differ in {bad[:5]}")
+        for part, path in (("b", "e2e.jsonl"), ("c", "camelyon.jsonl")):
+            rows = metrics_rows(os.path.join(tmp, path))
+            if [(r["epoch"], r["split"]) for r in rows] != [
+                    (0, "train"), (0, "test")]:
+                raise AssertionError(f"({part}) metrics lines {rows}: rank 0 "
+                                     "alone writes one train and one test "
+                                     "line")
+
+        # (a) the streamed selection at 1x2 against one process's
+        conf = pc_e2e_conf()
+        counts, train_ds, _ = e2e_corpus(conf)
+        item = train_ds[PC_SLIDE]
+        xh, mh = item["input"][None], item["mask"][None]
+        single = IPSTrainer(conf)
+        sel, ms, peak = _peak_of(torch, lambda: single.select_streaming(
+            xh, mh, single.new_generator(SEED)))
+        ref = sel[2].cpu()
+        del sel
+        bucket = train_ds.bucket_of(PC_SLIDE)
+        per = n_chunks(conf, bucket)
+        half = conf.I // 2
+        x = mask = None
+        for r, rk in enumerate(ranks):
+            a = rk["a"]
+            *chunks, kept = a["staged"]
+            if (any(s[-1] != half for s in chunks)
+                    or kept[-1] != conf.M):
+                raise AssertionError(f"(a) rank {r} staged {a['staged']}")
+            if rk["launches"]["a"] != per:
+                raise AssertionError(f"(a) rank {r} launched score_logits "
+                                     f"{rk['launches']['a']} times, "
+                                     f"expected {per}")
+            if a["peak"] > peak:
+                raise AssertionError(
+                    f"(a) rank {r}'s selection peaks at "
+                    f"{a['peak'] / 2**20:.1f} MiB, above one process's "
+                    f"{peak / 2**20:.1f} MiB")
+            if torch.equal(a["idx"], ref):
+                continue
+            if x is None:
+                x = torch.from_numpy(xh).to(device)
+                mask = torch.from_numpy(mh).to(device)
+            m = single.model
+            rows_all = torch.arange(1, device=device)[:, None]
+
+            def whole(i, m=m):
+                return m.encode(x[rows_all, i])
+
+            def halves(i, m=m):
+                h = i.shape[1] // 2
+                if i.shape[1] % 2:
+                    return m.encode(x[rows_all, i])
+                return torch.cat([m.encode(x[rows_all, i[:, :h]]),
+                                  m.encode(x[rows_all, i[:, h:]])], 1)
+
+            with torch.inference_mode():
+                _explain(torch, conf, x, mask, SEED, (m, whole), (m, halves),
+                         f"(a) rank {r} selection")
+        same = sum(torch.equal(rk["a"]["idx"], ref) for rk in ranks)
+        log(f"  (a) streamed selection of train slide {PC_SLIDE} "
+            f"({train_ds._ns[PC_SLIDE]} tiles, bucket {bucket}) at 1x2: every "
+            f"stage of each rank holds {half} of each chunk's {conf.I} "
+            f"tiles ({ranks[0]['a']['staged']}); kept indices equal to one "
+            f"process's on {same} of 2 ranks; {per} score_logits launches "
+            f"a rank; peak above its start: rank 0 "
+            f"{ranks[0]['a']['peak'] / 2**20:.1f} MiB, rank 1 "
+            f"{ranks[1]['a']['peak'] / 2**20:.1f} MiB, one process "
+            f"{peak / 2**20:.1f} MiB; ms (synchronised): ranks "
+            f"{ranks[0]['a']['ms']:.2f} / {ranks[1]['a']['ms']:.2f}, one "
+            f"process {ms:.2f}; card {card}")
+        del single, x, mask
+        torch.cuda.empty_cache()
+
+        # (b) one process fed the same optimizer batch, from the seed
+        order = [int(i) for b in DataLoader(
+            train_ds, batch_size=conf.B, shuffle=True, seed=conf.seed,
+            bucket_fn=train_ds.bucket_of, drop_last=True)._batch_indices()
+            for i in b]
+        seq = [int(i) for b in DataLoader(
+            train_ds, batch_size=conf.B_seq, shuffle=True,
+            seed=conf.seed)._batch_indices() for i in b]
+        log(f"  (b) epoch 0's slide order: the bucketed loader of B = "
+            f"{conf.B} rows {order}, phase camelyon_e2e's of B_seq = "
+            f"{conf.B_seq} {seq}: {'the same' if order == seq else 'not the same'}")
+        with StepRecorder() as rec:
+            saved = driver.build_loaders
+            driver.build_loaders = lambda c, tr, te, *a: slot_loaders(
+                c, tr, te)
+            try:
+                torch.cuda.reset_peak_memory_stats()
+                single, _, _ = driver.run(
+                    conf.replace(metrics_path=os.path.join(
+                        tmp, "e2e_one.jsonl")), "camelyon_e2e",
+                    datasets=(train_ds, train_ds))
+                torch.cuda.synchronize()
+            finally:
+                driver.build_loaders = saved
+        peak_b = torch.cuda.max_memory_allocated()
+        wall_b = metrics_rows(os.path.join(tmp, "e2e_one.jsonl"))[0][
+            "train_seconds"]
+        r0 = ranks[0]["b"]
+        n_sel = len(train_ds) // 2
+        train_u, test_u = rec.updates[:1], rec.updates[1:]
+        name = conf.task_list[0].name
+        diff = abs(r0["updates"][0][0][name] - train_u[0][0][name])
+        preds = np.asarray(sum((u[1][name] for u in test_u), []))
+        r_preds = np.asarray(sum((u[1][name] for u in
+                                  r0["updates"][1:]), []))
+        pdiff = float(np.abs(preds - r_preds).max())
+        n_same = n_order = 0
+        ebase = eval_base_seed(conf.seed)
+        tbase = train_base_seed(conf.seed, 0)
+        for r, rk in enumerate(ranks):
+            model_r = None
+            for j, got in enumerate(rk["b"]["kept"]):
+                train_sel = j < n_sel
+                g = r * n_sel + (j % n_sel)
+                want = rec.kept[g if train_sel else len(train_ds) + g]
+                if torch.equal(got, want):
+                    n_same += 1
+                    continue
+                if torch.equal(got.sort(1).values, want.sort(1).values):
+                    n_order += 1
+                    continue
+                slide = train_ds[order[g] if train_sel else g]
+                xs = torch.from_numpy(slide["input"][None]).to(device)
+                ms_ = torch.from_numpy(slide["mask"][None]).to(device)
+                if train_sel:       # both select from the seed's weights
+                    m1 = mr = IPSTrainer(conf).model
+                else:
+                    m1 = single.model
+                    if model_r is None:
+                        model_r = _model_from(torch, conf, {
+                            k[len("model/"):]: v for k, v in
+                            rk["b"]["state"].items()
+                            if k.startswith("model/")}, device)
+                    mr = model_r
+                rows_all = torch.arange(1, device=device)[:, None]
+                seed = fold_seed(tbase if train_sel else ebase, g)
+                with torch.inference_mode():
+                    _explain(torch, conf, xs, ms_, seed,
+                             (m1, lambda i, m=m1: m.encode(xs[rows_all, i])),
+                             (mr, lambda i, m=mr: m.encode(xs[rows_all, i])),
+                             f"(b) rank {r} slide {g} "
+                             f"{'train' if train_sel else 'eval'} selection")
+        e2e_rows = metrics_rows(os.path.join(tmp, "e2e.jsonl"))
+        log(f"  (b) camelyon_e2e at 2x1 through main.run (B = {conf.B} "
+            f"slides, {conf.B // 2} a rank, one optimizer step, the train "
+            f"slides as the test set): train loss "
+            f"{r0['updates'][0][0][name]:.6f} against one process's "
+            f"{train_u[0][0][name]:.6f} on the same batch (|diff| "
+            f"{diff:.3e}, bound {PC_E2E_LOSS_TOL}); eval of {len(preds)} "
+            f"slides after the step: predictions max |diff| {pdiff:.3e} "
+            f"(bound {PC_PRED_TOL}); kept sets equal to one process's in "
+            f"{n_same} of {sum(len(rk['b']['kept']) for rk in ranks)} "
+            f"rank-selections, the "
+            f"same sets in another order in {n_order}; params, AdamW "
+            f"moments and running statistics bitwise equal on both ranks "
+            f"({len(r0['state'])} tensors); rank 0 alone wrote "
+            f"{len(e2e_rows)} metrics lines")
+        log(f"  (b) ms a step (the epoch's wall: selection of the rank's "
+            f"slides and one train step): 2 ranks "
+            f"{e2e_rows[0]['train_seconds'] * 1e3:.2f}, one process "
+            f"{wall_b * 1e3:.2f}; peak: rank 0 "
+            f"{r0['peak'] / 2**20:.1f} MiB, rank 1 "
+            f"{ranks[1]['b']['peak'] / 2**20:.1f} MiB, one process "
+            f"{peak_b / 2**20:.1f} MiB; card {card}")
+        if diff > PC_E2E_LOSS_TOL or pdiff > PC_PRED_TOL:
+            raise AssertionError("(b) the ranks' step is off one process's")
+        del single, train_ds, item
+        torch.cuda.empty_cache()
+
+        # (c) camelyon features: one process on the same K = 4 group
+        conf = pc_camelyon_conf()
+        train_c, test_c = camelyon_corpus(conf)
+        loader, _ = slot_loaders(conf, train_c, test_c)
+        single = IPSTrainer(conf)
+        with StepRecorder() as rec:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            train_one_epoch(single, loader, 0,
+                            MetricsLogger(conf.task_list), conf)
+            torch.cuda.synchronize()
+            wall_c = time.perf_counter() - t1
+        r0 = ranks[0]["c"]
+        steps = len(train_c) // conf.B
+        name = conf.task_list[0].name
+        got = np.array([u[0][name] for u in r0["updates"][:steps]])
+        want = np.array([u[0][name] for u in rec.updates])
+        cdiff = np.abs(got - want)
+        cam_rows = metrics_rows(os.path.join(tmp, "camelyon.jsonl"))
+        log(f"  (c) camelyon features at 2x1 through main.run (B = "
+            f"{conf.B} from {conf.B // conf.B_seq} slots, 8 a rank, K = "
+            f"{conf.steps_per_dispatch}): per-step losses "
+            f"{[round(float(v), 6) for v in got]} against one process's "
+            f"{[round(float(v), 6) for v in want]} on the same batches "
+            f"(|diff| {cdiff[0]:.3e} at the first step, bound "
+            f"{PARALLEL_STEP0_TOL}; {cdiff.max():.3e} at most, bound "
+            f"{PARALLEL_LOSS_TOL}); state bitwise equal on both ranks "
+            f"({len(r0['state'])} tensors); the test set's "
+            f"{len(test_c)} slides lie in buckets of fewer than B = "
+            f"{conf.B}, so the sharded loader (drop_last) evaluates "
+            f"{len(r0['updates']) - steps} batches (test loss "
+            f"{cam_rows[1][f'{name}_loss']})")
+        log(f"  (c) ms a step: 2 ranks "
+            f"{cam_rows[0]['train_seconds'] / steps * 1e3:.2f} (epoch "
+            f"wall), one process {wall_c / steps * 1e3:.2f}; peak: rank 0 "
+            f"{r0['peak'] / 2**20:.1f} MiB, rank 1 "
+            f"{ranks[1]['c']['peak'] / 2**20:.1f} MiB; card {card}")
+        if cdiff[0] > PARALLEL_STEP0_TOL or cdiff.max() > PARALLEL_LOSS_TOL:
+            raise AssertionError("(c) the ranks' losses are off")
+        launches = ranks[0]["launches"]
+        want_l = {"a": per, "b": 2 * (len(counts) // 2) * per,
+                  "c": steps * (conf.B // 2) * n_chunks(
+                      conf, train_c.bucket_of(0))}
+        if launches != want_l:
+            raise AssertionError(f"rank 0 launched score_logits {launches} "
+                                 f"times, expected {want_l}")
+        log(f"  rank 0's score_logits launches: {launches}")
+        return sum(launches.values())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def traffic_corpus(conf, n_per_set=TRAFFIC_IMAGES):
     """Phase traffic's corpus, which scripts/traffic_learning.py makes at
     a larger count: both STS sets in memory at 1200x1600 from the port's
@@ -2861,6 +3337,8 @@ def main() -> int:
         camelyon_launches = phase_camelyon(torch, np, device, card)
     with Phase("camelyon_e2e"):
         e2e_launches = phase_camelyon_e2e(torch, np, device, card)
+    with Phase("parallel_camelyon"):
+        pc_launches = phase_parallel_camelyon(torch, np, device, card)
     with Phase("traffic"):
         traffic_launches = phase_traffic(torch, np, device, card)
     with Phase("hostops"):
@@ -2876,6 +3354,7 @@ def main() -> int:
                                  "parallel": parallel_launches,
                                  "camelyon": camelyon_launches,
                                  "camelyon_e2e": e2e_launches,
+                                 "parallel_camelyon": pc_launches,
                                  "traffic": traffic_launches,
                                  "int8": int8_launches,
                                  "export": export_launches}

@@ -1,10 +1,8 @@
 """Typed configuration (copy of ips_tpu/config.py for the port).
 
 Same schema, field names and validation as ``ips_tpu.config``, so the
-shipped YAML files load unchanged. Values whose code path the port does
-not have yet raise ``NotImplementedError`` naming the ROADMAP item that
-brings them. ``pyyaml`` is imported only when a YAML file or a CLI
-override is parsed: the port itself runs without it.
+shipped YAML files load unchanged. ``pyyaml`` is imported only when a
+YAML file or a CLI override is parsed: the port itself runs without it.
 """
 
 from __future__ import annotations
@@ -12,16 +10,6 @@ from __future__ import annotations
 import dataclasses
 import json
 from typing import Any, Dict, List, Optional, Tuple
-
-# the parts of ROADMAP.md item 6 still to come; the config, the sharded
-# trainer and the training loop raise with these
-STREAMING_UNDER_MESH = (
-    "streaming selection (eager: false) under a mesh larger than 1x1 is "
-    "not ported yet: ROADMAP.md item 6 (streaming under a mesh)")
-ASSEMBLED_UNDER_DP = (
-    "B_seq < B with more than one data rank is not ported yet: ROADMAP.md "
-    "item 6 (the B_seq < B schedules under several data ranks)")
-
 
 @dataclasses.dataclass
 class TaskConfig:
@@ -238,18 +226,6 @@ class Config:
         if self.n_token < n_tok_needed:
             raise ValueError(
                 f"n_token={self.n_token} < number of tasks ({n_tok_needed})")
-        self._check_ported()
-
-    def _check_ported(self):
-        """Raise for values whose code path the port does not have yet.
-
-        Each names the ROADMAP.md queue-1 item that brings it, so that a
-        config is never run with a knob silently ignored.
-        """
-        if self.mesh_data * self.mesh_patch > 1 and not self.eager:
-            raise NotImplementedError(STREAMING_UNDER_MESH)
-        if self.mesh_data > 1 and self.B_seq < self.B:
-            raise NotImplementedError(ASSEMBLED_UNDER_DP)
 
     # -- convenience --------------------------------------------------------
     @property

@@ -46,8 +46,8 @@ import torch
 
 from ips_tpu_torch.config import Config, load_config
 from ips_tpu_torch.parallel import distributed as pdist
-from ips_tpu_torch.train.loop import (check_ported_schedule, evaluate,
-                                      train_one_epoch)
+from ips_tpu_torch.train.loop import (check_sharded_slots, evaluate,
+                                      sharded_slots, train_one_epoch)
 from ips_tpu_torch.train.metrics import MetricsLogger
 from ips_tpu_torch.train.steps import IPSTrainer
 from ips_tpu_torch.utils.device import fp32_matmuls
@@ -79,21 +79,27 @@ def build_datasets(conf: Config, dataset: str):
 def build_loaders(conf: Config, train_data, test_data, data_rank: int = 0,
                   n_data: int = 1):
     """Seeded loaders of B_seq rows a batch; data rank ``data_rank`` of
-    ``n_data`` loads its B_seq / n_data rows of each."""
+    ``n_data`` loads its B_seq / n_data rows of each. With B_seq < B over
+    several data ranks the loaders run at optimizer-batch granularity
+    (B rows), so that a rank's B / n_data contiguous rows are its
+    r / n_data slots, and a dataset with buckets always buckets: an
+    optimizer batch has one shape (``ips_tpu/main.py:49-84``)."""
     from ips_tpu_torch.data.loader import DataLoader
+    slots = sharded_slots(conf, n_data)
+    batch_size = conf.B if slots else conf.B_seq
 
     def bucket_fn(data):
         # variable-N datasets batch > 1 rows by grouping same-bucket items
-        if conf.B_seq > 1 and hasattr(data, "bucket_of"):
+        if (conf.B_seq > 1 or slots) and hasattr(data, "bucket_of"):
             return data.bucket_of
         return None
 
-    train_loader = DataLoader(train_data, batch_size=conf.B_seq,
+    train_loader = DataLoader(train_data, batch_size=batch_size,
                               shuffle=True, num_workers=conf.n_worker,
                               seed=conf.seed,
                               bucket_fn=bucket_fn(train_data),
                               process_index=data_rank, process_count=n_data)
-    test_loader = DataLoader(test_data, batch_size=conf.B_seq, shuffle=False,
+    test_loader = DataLoader(test_data, batch_size=batch_size, shuffle=False,
                              num_workers=conf.n_worker,
                              bucket_fn=bucket_fn(test_data),
                              process_index=data_rank, process_count=n_data)
@@ -124,16 +130,18 @@ def build_trainer(conf: Config,
 
 def _check_multihost_path(conf: Config) -> Config:
     """Fail before any step where a run of several processes cannot go;
-    returns the config with its mesh resolved. The eager dense and sparse
-    schedules with B_seq == B run; streaming under a mesh and B_seq < B
-    under several data ranks raise in the config (ROADMAP.md item 6)."""
+    returns the config with its mesh resolved. B_seq < B over several
+    data ranks needs r = B / B_seq to divide over them and dense batches
+    (``ips_tpu/main.py:102-130``)."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     if world > 1 and not conf.multihost:
         raise ValueError(
             f"WORLD_SIZE={world} in the environment but multihost is "
             "false: each process would train the whole model alone; set "
             "multihost=true to train one model over the ranks")
-    return resolve_mesh(conf)
+    conf = resolve_mesh(conf)
+    check_sharded_slots(conf, conf.mesh_data)
+    return conf
 
 
 def _profiler(device: torch.device):
@@ -158,7 +166,6 @@ def run(conf: Config, dataset: str,
     if pdist.initialize_from_config(conf, device):
         device = pdist.local_device(device)
     conf = _check_multihost_path(conf)
-    check_ported_schedule(conf)
     main_process = pdist.is_main_process()
     np.random.seed(conf.seed)
     if main_process:

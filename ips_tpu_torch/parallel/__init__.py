@@ -14,14 +14,17 @@ device of the mesh:
     ranks on one device);
   * loader: the JAX package's process-sharded loader is data-rank-sharded
     here: data rank ``d`` loads rows ``[d B / n_dp, (d + 1) B / n_dp)`` of
-    every global batch, the ranks of one patch group the same rows;
+    every global batch, the ranks of one patch group the same rows; with
+    B_seq < B it batches whole optimizer batches, so those rows are the
+    rank's r / n_dp slots;
   * a run of several processes with a 1 x 1 mesh in its config takes
     ``mesh_data = world_size // mesh_patch``, as ``ips_tpu/main.py``
     does.
 
 Modules: :mod:`.mesh` (the grid, ``shard_rows``, row-sharded random
 draws), :mod:`.distributed` (the process group and the collectives) and
-:mod:`.ips_sharded` (``ips_select_cp`` and ``ShardedIPSTrainer``). This
+:mod:`.ips_sharded` (``ips_select_cp`` and ``ShardedIPSTrainer``, whose
+docstring maps streaming and B_seq < B onto the ranks). This
 package imports none of them itself: the model modules import
 :mod:`.mesh`, and :mod:`.ips_sharded` imports the trainer.
 """

@@ -19,9 +19,8 @@ Context parallelism, two modes (``conf.cp_select``):
   patches, and the (B, n, D) embeddings are all-gathered for scoring
   (``_selection_encode_wrap``). Encoding is per patch, so the selection
   is the single-device one. On the eager path every rank still holds its
-  whole local batch: context parallelism saves encode time here, not
-  patch memory, which waits for streaming under a mesh (ROADMAP.md item
-  6).
+  whole local batch: context parallelism saves encode time there, not
+  patch memory; streaming (below) saves both.
 * ``'local_merge'`` (``ips_select_cp``): each of ``n_shards`` contiguous
   slices of the N patches runs its own top-M selection, then the n_shards
   x M survivors are merged by one global rescoring. Under a patch group
@@ -30,8 +29,46 @@ Context parallelism, two modes (``conf.cp_select``):
   softmax-normalized over each candidate set, so this is a heuristic of
   the same family as the single stream.
 
-Not here yet (ROADMAP.md item 6): streaming selection under a mesh, and
-the B_seq < B schedules with more than one data rank; both raise.
+The JAX package has two multi-device forms, a single-process mesh and
+one process per host; a rank here is one device of the mesh, and each
+case below takes the form that matches it.
+
+Streaming under a mesh (``select_streaming``, ``eager: false``). JAX's
+single-process mesh places each streamed (B, I, ...) chunk with
+``_stream_spec``: rows over ``data`` and the patch axis over ``patch``
+where they divide, replicated where they do not; a stacked (G, B, I,
+...) stage likewise (``_stream_group_sharding``) and the kept (B, M,
+...) batch on ``data`` only (``_stream_out_sharding``). Its multi-host
+path refuses streaming, because the host-side selection state is per
+process. Here each rank streams exactly what one JAX device holds: its
+data rank's rows of the batch, and under a patch group of n_cp > 1
+only its contiguous I / n_cp slice of every chunk (of the first M tiles
+and of the M >= N shortcut's encode too), staged, copied and encoded;
+the (B, n, D) embeddings are gathered over the patch group in patch
+order (``_stream_patch_split``), and scoring and the top-M run the one
+stream on every rank of the group. A count that does not divide is
+staged and encoded whole, as ``_stream_spec`` replicates it. The M kept
+raw patches are gathered whole, since training is not patch-sharded.
+So the ranks compute what the single-process mesh computes, and each
+holds 1 / n_cp of a stage on its device.
+
+B_seq < B under several data ranks. JAX's multi-host form shards the
+r = B / B_seq loader-slot axis over ``data`` (``_assembled_spec``): the
+loader runs at optimizer-batch granularity and each process loads its
+contiguous B / n_dp rows of every optimizer batch, which are its
+r / n_dp slots; r must divide over the data ranks. The port does the
+same, since its ranks are processes: a rank's assembled payload is its
+(r / n_dp, B_seq, N, ...) slots, its labels and weights its rows
+``row_range(B)``, and one step with global statistics, loss weight and
+gradient all-reduce trains the B rows (``train/loop.py``). A slot lies
+whole on one rank, so its selection draws its own B_seq rows from its
+own generator (``_select_rows``), while dropout in the step draws the
+global B rows and keeps the rank's. ``preencode_select: 'auto'``
+resolves on the global (r * B_seq, N, ...) table, which is what JAX's
+jitted step sees. Streaming with B_seq < B (camelyon_e2e) streams each
+of the rank's r / n_dp slots and trains once on its B / n_dp rows: the
+single process's select-assemble-train schedule with the work split by
+slot.
 """
 
 from __future__ import annotations
@@ -42,8 +79,7 @@ from typing import Optional, Union
 import torch
 import torch.distributed as dist
 
-from ips_tpu_torch.config import (ASSEMBLED_UNDER_DP, STREAMING_UNDER_MESH,
-                                  Config)
+from ips_tpu_torch.config import Config
 from ips_tpu_torch.models.norm import MaskedBatchNorm
 from ips_tpu_torch.ops.selection import (SelectionResult, _gather_rows,
                                          ips_select, select_top_m)
@@ -54,6 +90,7 @@ from ips_tpu_torch.parallel.distributed import (all_gather_rows,
 from ips_tpu_torch.parallel.mesh import (Mesh, make_mesh, row_range,
                                          row_shard, shard_rows)
 from ips_tpu_torch.train.steps import IPSTrainer, compute_task_losses
+from ips_tpu_torch.train.streaming import PatchSplit
 
 
 def ips_select_cp(encode_fn, score_fn, patches: torch.Tensor, *, M: int,
@@ -146,10 +183,11 @@ class ShardedIPSTrainer(IPSTrainer):
             raise ValueError(
                 f"B={conf.B} must be a multiple of the data mesh axis "
                 f"({self.n_dp})")
-        if not conf.eager and self.mesh.size > 1:
-            raise NotImplementedError(STREAMING_UNDER_MESH)
-        if conf.B_seq < conf.B and self.n_dp > 1:
-            raise NotImplementedError(ASSEMBLED_UNDER_DP)
+        r = conf.B // conf.B_seq
+        if conf.B_seq < conf.B and r % self.n_dp:
+            raise ValueError(
+                f"multi-host assembled path needs r = B/B_seq divisible by "
+                f"the data-axis size (r={r}, data={self.n_dp})")
         if self.n_cp > 1:
             if conf.N % self.n_cp:
                 raise ValueError(
@@ -182,6 +220,20 @@ class ShardedIPSTrainer(IPSTrainer):
         return row_shard(self.conf.B,
                          row_range(self.conf.B, self.mesh)[0])
 
+    def _select_rows(self):
+        """Random draws by row of a selection see the global rows of the
+        batch it selects: a B_seq == B batch is split over the data ranks;
+        a slot of B_seq < B rows lies whole on one rank and draws its own
+        rows, as one process's loader batch does."""
+        if self.conf.B_seq < self.conf.B:
+            return contextlib.nullcontext()
+        return self._rows()
+
+    def _slot_table_rows(self, local_rows: int) -> int:
+        """The global stacked table's rows: the data ranks hold r / n_dp
+        slots each."""
+        return local_rows * self.n_dp
+
     # -- selection ----------------------------------------------------------
     def _selection_encode_wrap(self):
         """Exact context parallelism: each rank of the patch group encodes
@@ -202,10 +254,21 @@ class ShardedIPSTrainer(IPSTrainer):
 
         return wrap
 
+    def _stream_patch_split(self):
+        """Streaming under a patch group: this rank's place (its patch
+        rank, the group's size) and the gather of the embeddings over the
+        group (see the module docstring); None on one patch rank. The
+        streamed stream is exact whatever ``cp_select`` says, as JAX's."""
+        if self.n_cp <= 1:
+            return None
+        group = self.mesh.patch_group
+        return PatchSplit(self.mesh.coords[1], self.n_cp,
+                          lambda e: all_gather_rows(e, group, dim=1))
+
     def _select_impl(self, patches, mask, generator=None, return_emb=False,
                      preencode=None):
         conf = self.conf
-        with self._rows():
+        with self._select_rows():
             if self.n_cp <= 1 or conf.cp_select == "exact":
                 return super()._select_impl(patches, mask, generator,
                                             return_emb, preencode)
@@ -224,8 +287,10 @@ class ShardedIPSTrainer(IPSTrainer):
         out = (res.mem_patch, res.mem_pos, res.mem_idx, res.mem_mask)
         return out + (res.mem_emb,) if return_emb else out
 
+    @torch.no_grad()
     def select_streaming(self, *args, **kw):
-        raise NotImplementedError(STREAMING_UNDER_MESH)
+        with self._select_rows():
+            return super().select_streaming(*args, **kw)
 
     # -- losses, gradients and outputs --------------------------------------
     def _task_losses(self, preds, labels, weights):

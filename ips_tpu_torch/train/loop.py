@@ -51,8 +51,20 @@ Under data parallelism (``parallel.ips_sharded.ShardedIPSTrainer``) each
 rank's loader yields its B_seq / n_dp rows of every batch, and the
 labels and row weights kept for the metrics are gathered to the global
 batch (``host_allgather``, where ``ips_tpu/train/loop.py`` gathers
-them), so every rank accumulates the same global metrics. The B_seq < B
-schedules with more than one data rank are not ported yet and raise.
+them), so every rank accumulates the same global metrics. With B_seq <
+B the loader runs at optimizer-batch granularity instead
+(``main.build_loaders``): each rank's B / n_dp rows of an optimizer
+batch are its r / n_dp slots of B_seq rows, and every schedule is the
+JAX package's multi-host one (``_epoch_assembled_mh`` :486,
+``_prep_assembled_mh`` :382, ``_flush_assembled_mh`` :437): global slot
+g = it * r + j selects with ``fold_seed(base, g)``, the step trains
+with the last global slot's seed folded with 1 at the lr of the last
+slot's B_seq-unit step, so every rank reaches one process's
+select-assemble-train updates. Eager batches take the fused assembled
+steps in groups of K (``_epoch_slots``); streamed ones are selected slot
+by slot on the rank and trained once (``_epoch_slots_streamed``).
+The sharded loader drops a bucket's last partial optimizer batch, as
+JAX's does.
 """
 
 from __future__ import annotations
@@ -64,7 +76,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ips_tpu_torch.config import ASSEMBLED_UNDER_DP, Config
+from ips_tpu_torch.config import Config
 from ips_tpu_torch.parallel.distributed import host_allgather, is_main_process
 from ips_tpu_torch.train.schedule import warmup_cosine_lr
 from ips_tpu_torch.train.steps import IPSTrainer
@@ -95,12 +107,30 @@ def _n_data(trainer) -> int:
     return getattr(trainer, "n_dp", 1)
 
 
-def check_ported_schedule(conf: Config, trainer=None) -> None:
-    """Raise for a schedule the port does not have, before any step: the
-    B_seq < B schedules under several data ranks (``_epoch_assembled_mh``
-    and its helpers there)."""
-    if conf.B_seq < conf.B and _n_data(trainer) > 1:
-        raise NotImplementedError(ASSEMBLED_UNDER_DP)
+def sharded_slots(conf: Config, n_data: int) -> bool:
+    """B_seq < B over several data ranks: the loader yields a rank's
+    B / n_data rows of each optimizer batch, its r / n_data slots."""
+    return conf.B_seq < conf.B and n_data > 1
+
+
+def check_sharded_slots(conf: Config, n_data: int) -> None:
+    """Raise before any step where B_seq < B cannot run over ``n_data``
+    data ranks: r = B / B_seq must divide over them, and sparse batches
+    have no assembled form (``ips_tpu/main.py:102-130``)."""
+    if not sharded_slots(conf, n_data):
+        return
+    r = conf.B // conf.B_seq
+    if r % n_data:
+        raise ValueError(
+            f"multi-host assembled path (B_seq < B) needs r = B/B_seq "
+            f"divisible by the data mesh axis — got r={r}, "
+            f"data={n_data}; raise B or lower B_seq/mesh size")
+    if conf.sparse_input:
+        raise ValueError(
+            "multi-host training with B_seq < B requires dense batches "
+            "(sparse_input=false): the assembled path takes (r, B_seq, N, "
+            f"...) slots — got B_seq={conf.B_seq}, B={conf.B}, "
+            f"sparse_input={conf.sparse_input}")
 
 
 def _global_host(trainer, labels, row_weights):
@@ -195,10 +225,12 @@ def _pad_loader_batch(conf: Config, batch: Dict[str, np.ndarray],
 
 class BatchAssembler:
     """Accumulates B_seq-row selections into one (B, M, ...) train batch,
-    zero-padded to B with weight-0 rows."""
+    zero-padded to B with weight-0 rows; ``rows`` in place of B for a
+    data rank's share of the batch."""
 
-    def __init__(self, conf: Config):
+    def __init__(self, conf: Config, rows: Optional[int] = None):
         self.conf = conf
+        self.rows = conf.B if rows is None else rows
         self.reset()
 
     def reset(self):
@@ -220,11 +252,11 @@ class BatchAssembler:
 
     @property
     def full(self) -> bool:
-        return self.n_prep >= self.conf.B
+        return self.n_prep >= self.rows
 
     def take(self):
         """(patch, pos, mask, labels, weights), each padded to B rows."""
-        B, n = self.conf.B, self.n_prep
+        B, n = self.rows, self.n_prep
 
         def pad(xs):
             x = torch.cat(xs)
@@ -341,15 +373,23 @@ def _stack_labels(group):
             for k in group[0].payload["labels"]}
 
 
-def _log_train_step(conf, tracker, logger, epoch, data_it, is_last, lr,
-                    loss, task_losses, preds, labels, weights):
+def _log_step_metrics(trainer, logger, task_losses, preds, labels,
+                      weights):
+    """A step's metrics from its (global) outputs and this rank's labels
+    and row weights on the device, gathered to the global batch."""
+    tl, pr = _to_host(task_losses, preds)
+    lab, w = _global_host(trainer, {k: _np(v) for k, v in labels.items()},
+                          _np(weights))
+    logger.update(tl, pr, lab, weights=w)
+
+
+def _log_train_step(trainer, conf, tracker, logger, epoch, data_it,
+                    is_last, lr, loss, task_losses, preds, labels, weights):
     """Shared post-step bookkeeping: tracker, optional step log, metrics."""
     if tracker is not None:
         tracker.stop(epoch, data_it, is_last)
     _maybe_log_step(conf, data_it, loss, lr)
-    tl, pr = _to_host(task_losses, preds)
-    logger.update(tl, pr, {k: _np(v) for k, v in labels.items()},
-                  weights=_np(weights))
+    _log_step_metrics(trainer, logger, task_losses, preds, labels, weights)
 
 
 def _select_into(trainer: IPSTrainer, assembler: BatchAssembler,
@@ -380,10 +420,15 @@ def _assembler_train(trainer, conf, assembler, logger, tracker, epoch,
     loss, task_losses, preds = trainer.train_step(
         patch, pos, mmask, lab, weights,
         trainer.new_generator(fold_seed(last.seed, 1)), lr)
-    _log_train_step(conf, tracker, logger, epoch,
+    _log_train_step(trainer, conf, tracker, logger, epoch,
                     epoch * steps_per_epoch + last.it, is_last, lr, loss,
                     task_losses, preds, lab, weights)
     return lr
+
+
+def _opt_rows(trainer, conf: Config) -> int:
+    """This rank's rows of an optimizer batch."""
+    return conf.B // _n_data(trainer)
 
 
 def _grouped_epoch(loader, epoch, logger, conf, steps_per_epoch, prep,
@@ -601,14 +646,211 @@ def _train_epoch_assembled(trainer, loader, epoch, logger, conf, base,
     return last_lr
 
 
+# ------------------------------------ B_seq < B over several data ranks
+class _Slots(NamedTuple):
+    """One optimizer batch's slots on this rank: its r / n_dp slots'
+    selection seeds, the step's train seed and lr, and the global batch's
+    labels and row weights for the metrics."""
+    it: int
+    payload: dict
+    labels: dict
+    row_weights: np.ndarray
+    seeds: list
+    train_seed: int
+    lr: float
+
+
+def _prep_slots(trainer, conf: Config, base: int, epoch: int,
+                steps_seq: int, host: bool, ib) -> _Slots:
+    """Loader batch ``it`` (this rank's contiguous B / n_dp rows of global
+    optimizer batch ``it``) as (r / n_dp, B_seq, N, ...) slots, on the
+    device or, for streaming (``host``), in host memory. Global slot
+    g = it * r + j is one process's loader batch g: it selects with
+    ``fold_seed(base, g)``; the step trains with the last slot's seed
+    folded with 1, at the lr of the last slot's B_seq-unit step
+    (``_prep_assembled_mh``, ``ips_tpu/train/loop.py:382``)."""
+    it, batch = ib
+    n_dp, d = _n_data(trainer), trainer.mesh.coords[0]
+    r = conf.B // conf.B_seq
+    rows = conf.B // n_dp
+    x = np.asarray(batch["input"])
+    if x.shape[0] != rows:
+        # the data-rank-sharded loader drops partial batches
+        raise ValueError(f"multi-host assembled: expected {rows} local "
+                         f"rows, got {x.shape[0]}")
+    r_loc, N = r // n_dp, x.shape[1]
+    labels = _labels_from_batch(conf, batch)
+    row_weights = np.ones(rows, np.float32)
+    mask = _batch_mask(batch, rows, N).reshape(r_loc, conf.B_seq, N)
+    x = x.reshape((r_loc, conf.B_seq) + x.shape[1:])
+    payload = _put_common(trainer, labels, row_weights)
+    if host:
+        payload.update(patches=x, mask=mask)
+    else:
+        payload.update(patches=_to_device(x, trainer.device),
+                       mask=_to_device(mask, trainer.device))
+    slot0 = it * r + d * r_loc
+    labels, row_weights = _global_host(trainer, labels, row_weights)
+    return _Slots(it, payload, labels, row_weights,
+                  [fold_seed(base, slot0 + j) for j in range(r_loc)],
+                  fold_seed(fold_seed(base, it * r + r - 1), 1),
+                  _lr(conf, epoch, steps_seq, it * r + r - 1))
+
+
+def _log_slots(conf, logger, epoch, steps_seq, i: _Slots, loss,
+               task_losses, preds, train: bool):
+    if train:
+        r = conf.B // conf.B_seq
+        _maybe_log_step(conf, epoch * steps_seq + (i.it + 1) * r - 1, loss,
+                        i.lr)
+    tl, pr = _to_host(task_losses, preds)
+    logger.update(tl, pr, i.labels, weights=i.row_weights)
+
+
+def _flush_slots(trainer, conf, logger, items, train: bool, epoch: int,
+                 steps_seq: int) -> None:
+    """Pending optimizer (or eval) batches: one K-stacked dispatch for a
+    full group of one shape, single steps otherwise (a bucket's shape
+    changed, or the epoch's tail); ``_flush_assembled_mh`` :437."""
+    if not items:
+        return
+    K, gen = conf.steps_per_dispatch, trainer.new_generator
+
+    def stack(key):
+        return torch.stack([i.payload[key] for i in items])
+
+    if (len(items) == K and K > 1
+            and len({i.payload["patches"].shape for i in items}) == 1):
+        lab = {k: torch.stack([i.payload["labels"][k] for i in items])
+               for k in items[0].payload["labels"]}
+        sel = [[gen(s) for s in i.seeds] for i in items]
+        if train:
+            out = trainer.fused_assembled_multi_step(
+                stack("patches"), stack("mask"), lab, stack("w"), sel,
+                [gen(i.train_seed) for i in items], [i.lr for i in items])
+        else:
+            out = trainer.fused_assembled_eval_multi_step(
+                stack("patches"), stack("mask"), lab, stack("w"), sel)
+        losses, task_losses, preds = _host(out)
+        for j, i in enumerate(items):
+            _log_slots(conf, logger, epoch, steps_seq, i, losses[j],
+                       {k: v[j] for k, v in task_losses.items()},
+                       {k: v[j] for k, v in preds.items()}, train)
+        return
+    for i in items:
+        q, sel = i.payload, [gen(s) for s in i.seeds]
+        if train:
+            out = trainer.fused_assembled_step(
+                q["patches"], q["mask"], q["labels"], q["w"], sel,
+                gen(i.train_seed), i.lr)
+        else:
+            out = trainer.fused_assembled_eval_step(
+                q["patches"], q["mask"], q["labels"], q["w"], sel)
+        _log_slots(conf, logger, epoch, steps_seq, i, *out, train)
+
+
+def _epoch_slots(trainer, loader, epoch, logger, conf, base,
+                 train: bool) -> float:
+    """Eager B_seq < B over data ranks, train or eval (``_epoch_assembled_mh``
+    :486): every loader batch is one optimizer batch; K of one shape make
+    one dispatch, and a change of shape flushes early, which keeps the
+    order of the updates."""
+    K = conf.steps_per_dispatch
+    steps_seq = len(loader) * (conf.B // conf.B_seq)
+    prep = partial(_prep_slots, trainer, conf, base, epoch, steps_seq,
+                   False)
+    last_lr, pending = 0.0, []
+
+    def flush():
+        nonlocal last_lr, pending
+        if pending:
+            _flush_slots(trainer, conf, logger, pending, train, epoch,
+                         steps_seq)
+            last_lr = pending[-1].lr
+            pending = []
+
+    for item in _prefetched(enumerate(loader), prep,
+                            max(conf.prefetch_depth, K + 1)):
+        if (pending and pending[-1].payload["patches"].shape
+                != item.payload["patches"].shape):
+            flush()
+        pending.append(item)
+        if len(pending) == K:
+            flush()
+    flush()
+    return last_lr
+
+
+def _epoch_slots_streamed(trainer, loader, epoch, logger, conf, base,
+                          train: bool, tracker=None) -> float:
+    """Streaming B_seq < B over data ranks: each rank streams its r / n_dp
+    slots with their global slots' generators into an assembler of its
+    B / n_dp rows, then one train step (global statistics, loss weight
+    and gradient all-reduce) or eval step: one process's
+    select-assemble-train schedule with the work split by slot. Eval
+    reuses the buffer's embeddings when ``_reuse_eval_emb()``."""
+    steps_seq = len(loader) * (conf.B // conf.B_seq)
+    reuse = not train and trainer._reuse_eval_emb()
+    last_lr = 0.0
+    for ib in enumerate(loader):
+        if tracker is not None:
+            tracker.start()
+        p = _prep_slots(trainer, conf, base, epoch, steps_seq, True, ib)
+        q = p.payload
+        assembler = BatchAssembler(conf, _opt_rows(trainer, conf))
+        for j, seed in enumerate(p.seeds):
+            rows = slice(j * conf.B_seq, (j + 1) * conf.B_seq)
+            gen = trainer.new_generator(seed)
+            if reuse:
+                _, mem_pos, _, mem_mask, payload = trainer.select_streaming(
+                    q["patches"][j], q["mask"][j], gen, return_emb=True)
+            else:
+                payload, mem_pos, _, mem_mask = trainer.select_streaming(
+                    q["patches"][j], q["mask"][j], gen)
+            assembler.add(payload, mem_pos, mem_mask,
+                          {k: v[rows] for k, v in q["labels"].items()},
+                          np.ones(conf.B_seq, np.float32))
+        patch, pos, mmask, lab, weights = assembler.take()
+        if train:
+            out = trainer.train_step(patch, pos, mmask, lab, weights,
+                                     trainer.new_generator(p.train_seed),
+                                     p.lr)
+            last_lr = p.lr
+            if tracker is not None:
+                tracker.stop(epoch, epoch * steps_seq + (p.it + 1)
+                             * (conf.B // conf.B_seq) - 1,
+                             p.it == len(loader) - 1)
+        else:
+            step = trainer.eval_from_emb_step if reuse else trainer.eval_step
+            out = step(patch, pos, mmask, lab, weights)
+        _log_slots(conf, logger, epoch, steps_seq, p, *out, train)
+    return last_lr
+
+
+def _slots_epoch(trainer, loader, epoch, logger, conf, base, train,
+                 tracker=None) -> float:
+    """The schedule of B_seq < B over data ranks: eager batches take the
+    fused assembled steps, streamed ones the rank's select-assemble."""
+    check_sharded_slots(conf, _n_data(trainer))
+    if conf.eager:
+        return _epoch_slots(trainer, loader, epoch, logger, conf, base,
+                            train)
+    return _epoch_slots_streamed(trainer, loader, epoch, logger, conf, base,
+                                 train, tracker)
+
+
 def train_one_epoch(trainer: IPSTrainer, loader, epoch: int, logger,
                     conf: Config,
                     tracker: Optional[EfficiencyTracker] = None) -> float:
     """One training epoch; returns the last step's lr."""
-    check_ported_schedule(conf, trainer)
     steps_per_epoch = len(loader)
     base = train_base_seed(conf.seed, epoch)
     tracker = tracker or EfficiencyTracker(conf, trainer.device)
+    if sharded_slots(conf, _n_data(trainer)):
+        last_lr = _slots_epoch(trainer, loader, epoch, logger, conf, base,
+                               True, tracker)
+        tracker.finish_epoch(epoch)
+        return last_lr
     # track_efficiency keeps the single-step schedules, timed per step
     grouped = conf.steps_per_dispatch > 1 and not conf.track_efficiency
     if conf.eager and conf.B_seq == conf.B:
@@ -629,7 +871,7 @@ def train_one_epoch(trainer: IPSTrainer, loader, epoch: int, logger,
     # are in
     prep = _prep_fused if conf.eager else _prep_host
     last_lr = 0.0
-    assembler = BatchAssembler(conf)
+    assembler = BatchAssembler(conf, _opt_rows(trainer, conf))
     for ib in enumerate(loader):
         is_last = ib[0] == steps_per_epoch - 1
         if assembler.n_prep == 0:
@@ -686,9 +928,7 @@ def _eval_assembled_step(trainer, logger, assembler, from_emb=False):
     payload, pos, mmask, lab, weights = assembler.take()
     step = trainer.eval_from_emb_step if from_emb else trainer.eval_step
     _, task_losses, preds = step(payload, pos, mmask, lab, weights)
-    tl, pr = _to_host(task_losses, preds)
-    logger.update(tl, pr, {k: _np(v) for k, v in lab.items()},
-                  weights=_np(weights))
+    _log_step_metrics(trainer, logger, task_losses, preds, lab, weights)
 
 
 def _eval_assembled(trainer, loader, logger, conf, base):
@@ -740,9 +980,11 @@ def _eval_assembled(trainer, loader, logger, conf, base):
 
 def evaluate(trainer: IPSTrainer, loader, logger, conf: Config) -> None:
     """One evaluation pass over ``loader``."""
-    check_ported_schedule(conf, trainer)
     steps_per_epoch = len(loader)
     base = eval_base_seed(conf.seed)
+    if sharded_slots(conf, _n_data(trainer)):
+        _slots_epoch(trainer, loader, 0, logger, conf, base, False)
+        return
     if conf.eager and conf.B_seq == conf.B:
         eval_fn = (_eval_sparse_pipelined if conf.sparse_input
                    else _eval_pipelined)
@@ -754,7 +996,7 @@ def evaluate(trainer: IPSTrainer, loader, logger, conf: Config) -> None:
     # same eval-mode encoder the forward would
     reuse = not conf.eager and trainer._reuse_eval_emb()
     prep = _prep_fused if conf.eager else _prep_host
-    assembler = BatchAssembler(conf)
+    assembler = BatchAssembler(conf, _opt_rows(trainer, conf))
     for ib in enumerate(loader):
         _select_into(trainer, assembler, prep(trainer, conf, base, ib),
                      reuse)

@@ -214,6 +214,17 @@ class IPSTrainer:
         ``encode_wrap``): None, one device encodes everything."""
         return None
 
+    def _stream_patch_split(self):
+        """The streamed chunks' split over a patch group
+        (``streaming.PatchSplit``): None, one device streams every
+        patch."""
+        return None
+
+    def _slot_table_rows(self, local_rows: int) -> int:
+        """The rows of the whole stacked (r * B_seq, N, ...) table whose
+        ``local_rows`` this trainer holds: all of them on one device."""
+        return local_rows
+
     def _select_impl(self, patches: torch.Tensor, mask: torch.Tensor,
                      generator: Optional[torch.Generator] = None,
                      return_emb: bool = False,
@@ -504,16 +515,22 @@ class IPSTrainer:
         """r selections over (r, B_seq, N, ...), each with its own
         generator, concatenated into B = r * B_seq rows. ``preencode`` is
         resolved once, on the whole stacked table as it arrives (before
-        the input cast): that is the tensor resident on the device."""
+        the input cast): that is the tensor resident on the device, and
+        under data ranks the global one (``_slots_preencode``)."""
         r = patches.shape[0]
         gens = generators if generators is not None else [None] * r
-        pe = self._resolve_preencode(
-            (r * patches.shape[1],) + tuple(patches.shape[2:]),
-            patches.dtype)
+        pe = self._slots_preencode(patches.shape, patches.dtype)
         return _cat_rows([
             self._select_impl(patches[j], None if mask is None else mask[j],
                               gens[j], return_emb=return_emb, preencode=pe)
             for j in range(r)])
+
+    def _slots_preencode(self, shape: Sequence[int],
+                         dtype: torch.dtype) -> bool:
+        """``preencode_select`` for stacked (r, B_seq, N, ...) slots of
+        ``shape``: resolved on the whole (r * B_seq, N, ...) table."""
+        rows = self._slot_table_rows(shape[0] * shape[1])
+        return self._resolve_preencode((rows,) + tuple(shape[2:]), dtype)
 
     def _fused_assembled_impl(self, patches, mask, labels, weights,
                               sel_generators, train_generator, lr):

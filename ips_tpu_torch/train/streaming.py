@@ -25,11 +25,19 @@ keeps one stage in the allocator's count whatever N is.
 
 uint8 tiles stay uint8 to the encoder (which scales each chunk); other
 input is cast to bfloat16 on the host when ``input_dtype`` asks for it.
+
+Under a patch group (the trainer's ``_stream_patch_split``, exact
+context parallelism) each rank stages, copies and encodes only its
+contiguous n / n_cp slice of every chunk of n patches, and the (B, n, D)
+embeddings are gathered back in patch order; a chunk's indices and
+validity stay whole, so the selection step is unchanged. A count that
+does not divide is staged and encoded whole. The M kept raw patches are
+gathered whole.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +55,14 @@ _Staged = Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
                 Optional[torch.cuda.Event]]
 
 
+class PatchSplit(NamedTuple):
+    """This rank's place in a patch group: ``gather`` concatenates every
+    rank's (B, n / size, D) embeddings along dim 1 in patch order."""
+    rank: int
+    size: int
+    gather: Callable[[torch.Tensor], torch.Tensor]
+
+
 class StreamingSelector:
     """Streaming selection for an :class:`IPSTrainer`."""
 
@@ -57,6 +73,24 @@ class StreamingSelector:
         self.group = max(int(self.conf.stream_chunk_group), 1)
         self._copy_stream = (torch.cuda.Stream(self.device)
                              if self.device.type == "cuda" else None)
+        self.split: Optional[PatchSplit] = trainer._stream_patch_split()
+
+    def _part(self, n: int) -> slice:
+        """This rank's patches of a chunk of ``n``: its contiguous slice
+        under a patch group, all of them when ``n`` does not divide."""
+        sp = self.split
+        if sp is None or n % sp.size:
+            return slice(0, n)
+        k = n // sp.size
+        return slice(sp.rank * k, (sp.rank + 1) * k)
+
+    def _encoder(self, encode, n: int):
+        """The encode of a chunk of ``n`` patches staged by ``_part``: the
+        slice's embeddings gathered back to all n."""
+        part = self._part(n)
+        if part.stop - part.start == n:
+            return encode
+        return lambda x: self.split.gather(encode(x))
 
     def _host_tiles(self, patches: np.ndarray, idx: np.ndarray
                     ) -> torch.Tensor:
@@ -77,11 +111,15 @@ class StreamingSelector:
         return buf
 
     def _stage(self, patches: np.ndarray, idx: np.ndarray,
-               valid: np.ndarray) -> _Staged:
+               valid: np.ndarray, split: bool = True) -> _Staged:
         """Gather one stage on the host and start its copy to the device:
         (tiles, idx, valid), each with a leading (S,) chunk axis, and the
-        event that marks the copy's end (None on the CPU)."""
-        tiles = self._host_tiles(patches, idx)
+        event that marks the copy's end (None on the CPU). With ``split``
+        the tiles are this rank's ``_part`` of each chunk; the indices and
+        validity stay whole."""
+        part = self._part(idx.shape[-1]) if split else slice(None)
+        tiles = self._host_tiles(patches, np.ascontiguousarray(
+            idx[..., part]))
         idx, valid = torch.from_numpy(idx), torch.from_numpy(valid)
         if self._copy_stream is None:
             return (tiles, idx, valid), None
@@ -138,9 +176,10 @@ class StreamingSelector:
             pos = (pos_table[:N].expand(B, N, pos_table.shape[-1])
                    if pos_table is not None else None)
             (x,), _, _ = self._ready(self._stage(
-                patches, np.tile(np.arange(N), (1, B, 1)), mask_np[None]))
+                patches, np.tile(np.arange(N), (1, B, 1)), mask_np[None],
+                split=return_emb))
             if return_emb:
-                return None, pos, idx, mask_d, encode(x)
+                return None, pos, idx, mask_d, self._encoder(encode, N)(x)
             return x, pos, idx, mask_d
 
         # the eager engine's permutation: valid patches first, the draws
@@ -163,9 +202,10 @@ class StreamingSelector:
         # the buffer starts with the first M patches of the permutation
         tiles, mem_idx, mem_valid = self._ready(
             self._stage(*host_stage([0], M)))
-        mem_emb = encode(tiles[0])
+        mem_emb = self._encoder(encode, M)(tiles[0])
         mem_idx, mem_valid = mem_idx[0], mem_valid[0]
         del tiles
+        encode_chunk = self._encoder(encode, I)
         stages = self._chunk_stages(N)
         staged = self._stage(*host_stage(stages[0], I))
         for k in range(len(stages)):
@@ -173,8 +213,8 @@ class StreamingSelector:
             staged = None
             for j in range(tiles.shape[0]):
                 mem_emb, mem_idx, mem_valid = ips_select_streaming_step(
-                    encode, score, mem_emb, mem_idx, mem_valid, tiles[j],
-                    idx[j], valid[j], M, pos_table)
+                    encode_chunk, score, mem_emb, mem_idx, mem_valid,
+                    tiles[j], idx[j], valid[j], M, pos_table)
             # this stage is released before the next one is allocated, and
             # the next one's copy runs while the card encodes the chunks
             # issued above
@@ -187,5 +227,5 @@ class StreamingSelector:
             return None, mem_pos, mem_idx, mem_valid, mem_emb
         kept = mem_idx.cpu().numpy()[None]
         (mem_patch,), _, _ = self._ready(self._stage(
-            patches, kept, np.ones(kept.shape, bool)))
+            patches, kept, np.ones(kept.shape, bool), split=False))
         return mem_patch, mem_pos, mem_idx, mem_valid

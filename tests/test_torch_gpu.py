@@ -676,3 +676,28 @@ def test_collectives_on_card_are_exact(cuda, tmp_path, backend, world):
         assert torch.equal(got["dsum"], dtotal.cpu())
         assert torch.equal(got["grads"][0], (total * 0.5).cpu())
         assert torch.equal(got["grads"][1], (2 * total * 0.5).cpu())
+
+
+def test_streaming_at_1x2_on_card_stages_half_chunks(no_tf32, tmp_path):
+    """Two gloo ranks sharing cuda:0 stream one slide at 1x2: every stage
+    of each rank holds I / 2 tiles of each chunk (the kept gather stays
+    whole), and the kept indices are bitwise one process's."""
+    import os
+
+    from ips_tpu_torch.config import config_from_dict
+    from ips_tpu_torch.parallel.launch import run_world
+    from ips_tpu_torch.train.steps import IPSTrainer
+    from torch_parallel_worker import CARD_STREAM, card_slide
+    run_world("torch_parallel_worker:stream_card", 2, [str(tmp_path)],
+              timeout=120,
+              python_path=[os.path.dirname(os.path.abspath(__file__))])
+    tr = IPSTrainer(config_from_dict(CARD_STREAM))
+    x, m = card_slide()
+    want = tr.select_streaming(x, m, tr.new_generator(5))[2].cpu()
+    half = CARD_STREAM["I"] // 2
+    for r in range(2):
+        got = torch.load(tmp_path / f"card{r}.pt")
+        assert got["device"] == "cuda:0"
+        assert torch.equal(got["idx"], want)
+        *chunks, kept = got["staged"]
+        assert all(s[-1] == half for s in chunks) and kept[-1] == 8

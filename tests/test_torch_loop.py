@@ -293,16 +293,22 @@ def test_densify_inside_matches_dense_batches(data_dir):
 
 # ------------------------------------------------------------- error paths
 def test_unported_schedules_raise(data_dir):
-    """B_seq < B under several data ranks waits for item 6; the loop
-    raises before any step (a trainer of 2 data ranks, in name only)."""
+    """B_seq < B over 2 data ranks, which raised while ROADMAP item 6 was
+    open, builds: the check passes, and a data rank's loader yields its
+    contiguous B / 2 rows of each optimizer batch, its r / 2 slots (the
+    worlds that train it are in test_torch_parallel_assembled.py)."""
+    from ips_tpu_torch.main import build_loaders
+    from ips_tpu_torch.train.loop import check_sharded_slots
     c = t_config(loop_conf(data_dir, B_seq=2, sparse_input=False))
-    tr = IPSTrainer(c, device="cpu")
-    tr.n_dp = 2
-    loader = DataLoader(MegapixelMNIST(c, train=False), batch_size=2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        train_one_epoch(tr, loader, 0, MetricsLogger(c.task_list), c)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        evaluate(tr, loader, MetricsLogger(c.task_list), c)
+    check_sharded_slots(c, 2)
+    ds = MegapixelMNIST(c, train=True)
+    whole, _ = build_loaders(c, ds, ds)
+    half, _ = build_loaders(c, ds, ds, data_rank=1, n_data=2)
+    assert (whole.batch_size, half.batch_size) == (c.B_seq, c.B)
+    assert half.drop_last and len(half) == len(ds) // c.B
+    ref = DataLoader(ds, batch_size=c.B, shuffle=True, seed=c.seed)
+    for got, want in zip(half, ref):
+        np.testing.assert_array_equal(got["input"], want["input"][2:])
 
 
 def test_multihost_settings_run(data_dir):

@@ -232,16 +232,42 @@ def test_sharded_trainer_accepts_what_jax_accepts(B, N, M, mesh, cp_select):
     assert (jerr is None) == (terr is None), (jerr, terr)
 
 
-@pytest.mark.parametrize("over,match", [
-    (dict(mesh_patch=2, eager=False), "streaming under a mesh"),
-    (dict(mesh_data=2, B_seq=2), "B_seq < B schedules")])
-def test_sharded_trainer_deferred_parts_raise(over, match):
-    conf = t_config(TINY)
-    for k, v in over.items():       # past the config's own check
-        setattr(conf, k, v)
-    with pytest.raises(NotImplementedError, match=match):
-        ShardedIPSTrainer(conf, mesh=_mesh(conf.mesh_data, conf.mesh_patch,
-                                           (0, 0)), device="cpu")
+@pytest.mark.parametrize("over", [
+    dict(mesh_patch=2, eager=False), dict(mesh_data=2, B_seq=2)],
+    ids=["streaming_1x2", "slots_2x1"])
+def test_sharded_trainer_deferred_parts_raise(over):
+    """The parts that raised while ROADMAP item 6 was open, streaming
+    under a patch group and B_seq < B over data ranks, build from a
+    hand-made grid: the streamed chunks split over the patch ranks, and
+    'auto' resolves on the global slot table."""
+    conf = t_config(dict(TINY, **over))
+    tr = ShardedIPSTrainer(conf, mesh=_mesh(conf.mesh_data, conf.mesh_patch,
+                                            (0, conf.mesh_patch - 1)),
+                           device="cpu")
+    split = tr._stream_patch_split()
+    assert (split is not None) == (conf.mesh_patch > 1)
+    if split is not None:
+        assert (split.rank, split.size) == (1, 2)
+    assert tr._slot_table_rows(conf.B // conf.mesh_data) == conf.B
+
+
+@pytest.mark.parametrize("B,B_seq,data,ok", [
+    (4, 1, 2, True), (4, 2, 2, True), (4, 2, 4, False), (6, 2, 2, False),
+    (8, 1, 4, True)])
+def test_slots_need_r_divisible_by_data(B, B_seq, data, ok):
+    """r = B / B_seq must divide over the data ranks: JAX's ValueError,
+    from the trainer and from the loop's check, before any step."""
+    from ips_tpu_torch.train.loop import check_sharded_slots
+    conf = t_config(dict(TINY, B=B, B_seq=B_seq, mesh_data=data))
+    mesh = _mesh(data, 1, (0, 0))
+    if ok:
+        ShardedIPSTrainer(conf, mesh=mesh, device="cpu")
+        check_sharded_slots(conf, data)
+        return
+    with pytest.raises(ValueError, match="divisible by the data"):
+        ShardedIPSTrainer(conf, mesh=mesh, device="cpu")
+    with pytest.raises(ValueError, match="divisible by the data"):
+        check_sharded_slots(conf, data)
 
 
 # ------------------------------------------------------------------ loader
