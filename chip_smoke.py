@@ -2467,16 +2467,60 @@ def phase_parallel_camelyon(torch, np, device, card):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def traffic_corpus(conf, n_per_set=TRAFFIC_IMAGES):
+def traffic_corpus(conf, n_per_set=TRAFFIC_IMAGES, sets=None):
     """Phase traffic's corpus, which scripts/traffic_learning.py makes at
     a larger count: both STS sets in memory at 1200x1600 from the port's
     synthetic generator (the images before JPEG), read as the train and
-    test ``TrafficSigns`` of ``conf``."""
+    test ``TrafficSigns`` of ``conf``; ``sets`` reads images made
+    before."""
     from ips_tpu_torch.data.traffic import TrafficSigns
     from ips_tpu_torch.data.traffic_synth import synth_sts_sets
-    sets = synth_sts_sets(n_per_set, *TRAFFIC_HW, seed=SEED)
+    if sets is None:
+        sets = synth_sts_sets(n_per_set, *TRAFFIC_HW, seed=SEED)
     return (TrafficSigns(conf, True, images=sets),
             TrafficSigns(conf, False, images=sets))
+
+
+def check_traffic_draws(np, conf, sets):
+    """The loader's draw rule at full width, on the host: after
+    ``skip_epochs(1)``, the first train batch of ``n_worker`` threads
+    equals that of no threads, and data ranks 0 and 1 of 2 load their
+    rows of one drop_last process's, all at ``n_worker`` threads,
+    bitwise. Each loader reads a train set of its own, so that each
+    starts from draw 0. Returns the host seconds."""
+    from ips_tpu_torch.data.loader import DataLoader
+    t0 = time.perf_counter()
+
+    def first(workers, **kw):
+        ld = DataLoader(traffic_corpus(conf, sets=sets)[0],
+                        batch_size=conf.B_seq, shuffle=True, seed=conf.seed,
+                        num_workers=workers, **kw)
+        ld.skip_epochs(1)
+        it = iter(ld)
+        batch = next(it)
+        it.close()
+        return batch
+
+    # the threaded loaders first: each leaves a producer finishing a
+    # batch it reserved, which ends while the unthreaded one loads
+    threaded = first(conf.n_worker)
+    one = first(conf.n_worker, drop_last=True)
+    ranks = [first(conf.n_worker, process_index=p, process_count=2)
+             for p in range(2)]
+    unthreaded = first(0)
+    k = conf.B_seq // 2
+    pairs = [(f"{conf.n_worker} threads against none", threaded,
+              unthreaded)] + [
+        (f"rank {p} of 2 against rows {p * k}:{(p + 1) * k} of one "
+         "drop_last process", r, {n: v[p * k:(p + 1) * k]
+                                  for n, v in one.items()})
+        for p, r in enumerate(ranks)]
+    for what, got, want in pairs:
+        for n in want:
+            if got[n].shape != want[n].shape or not np.array_equal(
+                    got[n], want[n]):
+                raise AssertionError(f"traffic draws: {what}: {n} differs")
+    return time.perf_counter() - t0
 
 
 def phase_traffic(torch, np, device, card):
@@ -2497,7 +2541,9 @@ def phase_traffic(torch, np, device, card):
             TRAFFIC_CONFIG, n_epoch=TRAFFIC_EPOCHS, n_epoch_warmup=1,
             metrics_path=metrics, checkpoint_dir=ckpt))
         t0 = time.perf_counter()
-        train_ds, test_ds = traffic_corpus(conf)
+        from ips_tpu_torch.data.traffic_synth import synth_sts_sets
+        sets = synth_sts_sets(TRAFFIC_IMAGES, *TRAFFIC_HW, seed=SEED)
+        train_ds, test_ds = traffic_corpus(conf, sets=sets)
         n_train, n_test = len(train_ds), len(test_ds)
         steps, evals = (math.ceil(n / conf.B) for n in (n_train, n_test))
         n_iter = math.ceil((conf.N - conf.M) / conf.I)
@@ -2517,6 +2563,15 @@ def phase_traffic(torch, np, device, card):
             f"{conf.enc_type}/{conf.n_res_blocks} blocks, D={conf.D}, "
             f"H={conf.H}, D_inner={conf.D_inner}, {conf.compute_dtype}, "
             f"fp32 host normalization, {conf.n_worker} loader threads")
+
+        # (0) the draw rule: threads and data ranks load one process's
+        # batches without threads
+        draw_s = check_traffic_draws(np, conf, sets)
+        log(f"  draws (host, after skip_epochs(1) on each loader): the "
+            f"first train batch of B = {conf.B_seq} at {conf.n_worker} "
+            "threads equals the unthreaded one, and ranks 0 and 1 of 2 at "
+            f"{conf.n_worker} threads their rows of one drop_last "
+            f"process's, bitwise; {draw_s:.2f} s on the host")
 
         # (a) two epochs through the driver, on the card by default
         trainer, wall, launches, eval_launches, peak = run_driver(
@@ -2583,7 +2638,8 @@ def phase_traffic(torch, np, device, card):
         for i in range(TRAFFIC_HOST_ITEMS):
             img = train_ds._load_image(train_ds._data[i][0])
             t0 = time.perf_counter()
-            img = train_ds.augment(img, i)
+            # an explicit draw: the counter the loaders read stays put
+            img = train_ds.augment(img, i, i)
             t1 = time.perf_counter()
             train_ds.to_patches(img)
             t_aug += t1 - t0

@@ -6,6 +6,9 @@ densify/patchify work) and a bounded queue keeps ``prefetch`` batches
 ready. It is not ``torch.utils.data.DataLoader``: the batch order comes
 from numpy's ``default_rng(seed)`` drawn exactly as the JAX package's
 loader draws it, so one seed gives both packages the same batches.
+A dataset that augments each item (traffic) gets the item's draw from
+its place in the epoch's global order (``DataLoader``'s draw rule), so
+threads and data ranks load the batches of one process without threads.
 Pinned memory and the copy to the card are the training loop's
 (``ips_tpu_torch.train.loop``).
 """
@@ -38,7 +41,25 @@ def _collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
 
 class DataLoader:
     """Shuffling, batching, prefetching iterator over a Dataset; batches
-    are dicts of stacked numpy arrays."""
+    are dicts of stacked numpy arrays.
+
+    The draw rule. A dataset that augments each item from a draw keeps
+    the draw counter itself (``take_draws(n)`` returns the first of n
+    draws and moves it on, so a loader built later over the dataset goes
+    on where the last one stopped) and fetches with ``item(i, draw)``.
+    The one thread that walks an epoch's global batches (after the
+    shuffle and any buckets, before a data rank's slice) reserves
+    ``len(batch)`` draws for each batch as it comes up, and global row r
+    takes draw ``base + r``: an item's draw is its place in the epoch's
+    global order, the order in which one process without threads
+    fetches. A data rank keeps its rows with their draws, and the threads
+    fetch (index, draw) pairs; so any thread count and any data rank
+    load rows of one process's batches, bitwise. ``skip_epochs`` skips
+    the draws of whole global epochs. That thread is the consumer without
+    threads and the producer with them, which may reserve the draws of
+    up to ``prefetch + 1`` batches that an epoch left unread never
+    yields. A dataset without ``take_draws`` is fetched by ``dataset[i]``.
+    """
 
     def __init__(self, dataset: Dataset, batch_size: int, shuffle: bool = False,
                  num_workers: int = 0, drop_last: bool = False,
@@ -100,7 +121,9 @@ class DataLoader:
                        for g in self._bucket_groups.values())
         return self._n_batches(len(self.dataset))
 
-    def _batch_indices(self) -> List[np.ndarray]:
+    def _global_batches(self) -> List[np.ndarray]:
+        """One epoch's batches of all ranks, in order (draws the epoch's
+        shuffle)."""
         if self.bucket_fn is not None:
             batches = []
             for key in sorted(self._bucket_groups):
@@ -112,51 +135,73 @@ class DataLoader:
                     for j in range(self._n_batches(len(g))))
             if self.shuffle:
                 self._rng.shuffle(batches)
-        else:
-            idx = np.arange(len(self.dataset))
-            if self.shuffle:
-                self._rng.shuffle(idx)
-            batches = [idx[i * self.batch_size:(i + 1) * self.batch_size]
-                       for i in range(len(self))]
-        if self.process_count > 1:
-            k = self.batch_size // self.process_count
-            lo = self.process_index * k
-            batches = [b[lo:lo + k] for b in batches]
-        return batches
+            return batches
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            self._rng.shuffle(idx)
+        return [idx[i * self.batch_size:(i + 1) * self.batch_size]
+                for i in range(len(self))]
+
+    def _rows(self) -> slice:
+        """This rank's rows of a global batch."""
+        k = self.batch_size // self.process_count
+        return slice(self.process_index * k, (self.process_index + 1) * k)
+
+    def _batch_indices(self) -> List[np.ndarray]:
+        """One epoch's batches of this rank (draws the epoch's shuffle)."""
+        return [b[self._rows()] for b in self._global_batches()]
 
     def skip_epochs(self, k: int) -> None:
         """Advance the shuffle stream past ``k`` epochs without loading
         data, so that a run resumed at epoch k sees the batch order an
-        unbroken run saw there. A dataset that draws from a stream of its
-        own per item (a ``skip_draws(n)`` method) skips the items of those
-        epochs too."""
+        unbroken run saw there. A dataset that draws per item (a
+        ``skip_draws(n)`` method) skips the draws of those epochs' global
+        batches too, on every rank."""
         n_items = 0
         for _ in range(max(0, k)):
-            n_items += sum(len(b) for b in self._batch_indices())
+            n_items += sum(len(b) for b in self._global_batches())
         skip = getattr(self.dataset, "skip_draws", None)
         if skip is not None and n_items:
             skip(n_items)
 
-    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        batches = self._batch_indices()
-        if self.num_workers == 0:
-            for b in batches:
-                yield self.collate_fn([self.dataset[int(i)] for i in b])
-            return
-        yield from self._iter_threaded(batches)
+    def _fetches(self, batches: List[np.ndarray]) -> Iterator[list]:
+        """Per global batch, this rank's fetches: indices, or (index,
+        draw) pairs whose draws are reserved as the batch comes up."""
+        take = getattr(self.dataset, "take_draws", None)
+        rows = self._rows()
+        for b in batches:
+            if take is None:
+                yield [int(i) for i in b[rows]]
+            else:
+                base = take(len(b)) + rows.start
+                yield [(int(i), base + r) for r, i in enumerate(b[rows])]
 
-    def _iter_threaded(self, batches: List[np.ndarray]):
+    def _fetch(self, job):
+        if isinstance(job, tuple):
+            return self.dataset.item(*job)
+        return self.dataset[job]
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        fetches = self._fetches(self._global_batches())
+        if self.num_workers == 0:
+            for jobs in fetches:
+                yield self.collate_fn([self._fetch(j) for j in jobs])
+            return
+        yield from self._iter_threaded(fetches)
+
+    def _iter_threaded(self, fetches: Iterator[list]):
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
         error: List[Optional[BaseException]] = [None]
         stop = threading.Event()
 
         def put(item) -> bool:
-            # bounded put that notices an abandoned consumer
+            # bounded put that notices an abandoned consumer, also when
+            # the consumer's drain below made the room for it
             while not stop.is_set():
                 try:
                     q.put(item, timeout=0.2)
-                    return True
+                    return not stop.is_set()
                 except queue.Full:
                     continue
             return False
@@ -164,12 +209,9 @@ class DataLoader:
         def producer():
             try:
                 with ThreadPoolExecutor(self.num_workers) as pool:
-                    def load(b):
-                        samples = list(pool.map(
-                            lambda i: self.dataset[int(i)], b))
-                        return self.collate_fn(samples)
-                    for b in batches:
-                        if not put(load(b)):
+                    for jobs in fetches:
+                        samples = list(pool.map(self._fetch, jobs))
+                        if not put(self.collate_fn(samples)):
                             return
             except BaseException as e:  # noqa: BLE001 - re-raised below
                 error[0] = e

@@ -14,8 +14,9 @@ What the JAX package's reader does, item for item:
   * resize to 1200x1600 (``img_size``); on train items torchvision's
     ``ColorJitter(0.1, 0.1, 0.1, 0.1)`` and a shift of up to 100 px
     (scaled with ``img_size``, or ``max_shift``), drawn from
-    ``default_rng([seed, i, draw])``; ImageNet normalisation on the host,
-    or uint8 out under ``input_norm: imagenet``; patches channels-last.
+    ``default_rng([seed, i, draw])`` (``TrafficSigns``' draw rule);
+    ImageNet normalisation on the host, or uint8 out under ``input_norm:
+    imagenet``; patches channels-last.
 
 Items are bitwise the JAX package's. Its download of the two sets is left
 out: it needs the network, so ``allow_download=True`` raises where the
@@ -32,7 +33,7 @@ on the same pixels.
 from __future__ import annotations
 
 import hashlib
-import itertools
+import threading
 from os import path
 from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
@@ -298,7 +299,16 @@ ImageSets = Mapping[str, Sequence[Tuple[str, np.ndarray, List[Sign]]]]
 
 
 class TrafficSigns(Dataset):
-    """Filtered STS images -> normalized NHWC patches + class label."""
+    """Filtered STS images -> normalized NHWC patches + class label.
+
+    The draw rule. A train item's color jitter and shift come from
+    ``default_rng([seed, i, draw])``. The dataset keeps the draw counter
+    (``take_draws``), so that a loader built later goes on where the last
+    one stopped. ``DataLoader`` reserves each global batch's draws
+    before any thread fetches and hands each item the draw of its place
+    in the epoch's global order (``item(i, draw)``); a direct
+    ``dataset[i]`` takes the next draw, as the JAX package's items do.
+    """
 
     def __init__(self, conf, train: bool = True, allow_download: bool = False,
                  images: Optional[ImageSets] = None):
@@ -317,9 +327,10 @@ class TrafficSigns(Dataset):
                               max(1, round(100 * self.img_size[1] / 1600)))
         # input_norm='imagenet' normalizes on the device: uint8 patches out
         self.emit_uint8 = conf.input_norm == "imagenet"
-        # one generator per item fetch (the loader's threads share no
-        # generator); the counter varies the augmentation across epochs
-        self._draw = itertools.count()
+        # one generator per item (the loader's threads share none); the
+        # counter varies the augmentation across epochs
+        self._next_draw = 0
+        self._draw_lock = threading.Lock()
         if images is None:
             self._images = None
             self._data = filter_sts(STS(conf.data_dir, train, conf.seed,
@@ -340,11 +351,18 @@ class TrafficSigns(Dataset):
     def __len__(self):
         return len(self._data)
 
+    def take_draws(self, n: int) -> int:
+        """The first of n consecutive draws; the counter moves past them."""
+        with self._draw_lock:
+            first = self._next_draw
+            self._next_draw += n
+        return first
+
     def skip_draws(self, n: int) -> None:
-        """Advance the augmentation stream by n item fetches, so that a
-        resumed run augments as the unbroken run did
-        (``DataLoader.skip_epochs`` calls it)."""
-        self._draw = itertools.count(next(self._draw) + n)
+        """Advance the augmentation stream by n items, so that a resumed
+        run augments as the unbroken run did (``DataLoader.skip_epochs``
+        calls it)."""
+        self.take_draws(n)
 
     def _load_image(self, key: str) -> np.ndarray:
         if self._images is not None:
@@ -354,9 +372,10 @@ class TrafficSigns(Dataset):
         img = img.resize((self.img_size[1], self.img_size[0]), Image.BILINEAR)
         return np.asarray(img, np.float32) / 255.0
 
-    def augment(self, img: np.ndarray, i: int) -> np.ndarray:
-        """A train item's color jitter and shift, from its own generator."""
-        rng = np.random.default_rng([self.seed, i, next(self._draw)])
+    def augment(self, img: np.ndarray, i: int, draw: int) -> np.ndarray:
+        """Item i's color jitter and shift at ``draw``, from a generator
+        of its own."""
+        rng = np.random.default_rng([self.seed, i, draw])
         img = color_jitter(img, rng)
         return random_translate(img, rng, max_dy=self.max_shift[0],
                                 max_dx=self.max_shift[1])
@@ -369,12 +388,16 @@ class TrafficSigns(Dataset):
             img = ((img - IMAGENET_MEAN) / IMAGENET_STD).astype(np.float32)
         return patchify(img, self.patch_size, self.patch_stride)
 
-    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+    def item(self, i: int, draw: int) -> Dict[str, np.ndarray]:
+        """Item i, augmented at ``draw`` when it is a train item."""
         key, category = self._data[i]
         img = self._load_image(key)
         if self.train:
-            img = self.augment(img, i)
+            img = self.augment(img, i, draw)
         out = {"input": self.to_patches(img)}
         for t in self.tasks:
             out[t.name] = np.int64(category)
         return out
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        return self.item(i, self.take_draws(1))

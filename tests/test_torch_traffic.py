@@ -300,18 +300,28 @@ def test_in_memory_wrong_size_raises():
 
 
 # ------------------------------------------------------------------ resume
+@pytest.mark.parametrize("rank", [None, 0, 1],
+                         ids=["one_process", "rank0of2", "rank1of2"])
+@pytest.mark.parametrize("workers", [0, 4])
 @pytest.mark.parametrize("k", [1, 2])
-def test_resumed_loader_draws_as_unbroken(synth_dir, k):
+def test_resumed_loader_draws_as_unbroken(synth_dir, k, workers, rank):
     """A run resumed at epoch k (``skip_epochs`` -> ``skip_draws``) loads
     the train batches the unbroken run loaded in epoch k, augmentation
-    included, in both packages."""
+    included, in both packages; the port at ``workers`` threads, in one
+    process or as data rank ``rank`` of 2, whose rows are those of one
+    drop_last process. The JAX package's loader runs without threads in
+    one process (its draws depend on thread timing with threads)."""
     c = conf_dict(synth_dir, shuffle=True, seed=2)
+    ranks = {} if rank is None else dict(process_index=rank,
+                                         process_count=2)
     batches = {}
-    for ds_mod, ld_mod, cfg in ((tt, t_loader, t_config),
-                                (jt, j_loader, j_config)):
+    for ds_mod, ld_mod, cfg, kw in (
+            (tt, t_loader, t_config, dict(num_workers=workers, **ranks)),
+            (jt, j_loader, j_config, dict(drop_last=rank is not None))):
         def loader():
             return ld_mod.DataLoader(ds_mod.TrafficSigns(cfg(c), True),
-                                     batch_size=4, shuffle=True, seed=2)
+                                     batch_size=4, shuffle=True, seed=2,
+                                     **kw)
         unbroken = loader()
         for _ in range(k):
             list(unbroken)
@@ -319,13 +329,16 @@ def test_resumed_loader_draws_as_unbroken(synth_dir, k):
         resumed = loader()
         resumed.skip_epochs(k)
         got = list(resumed)
-        assert len(got) == len(want) == 3
+        assert len(got) == len(want) == len(resumed) >= 2
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g["input"], w["input"])
             np.testing.assert_array_equal(g["sign"], w["sign"])
         batches[ld_mod] = got
+    rows = slice(None) if rank is None else slice(2 * rank, 2 * rank + 2)
+    assert len(batches[t_loader]) == len(batches[j_loader])
     for g, w in zip(batches[t_loader], batches[j_loader]):
-        np.testing.assert_array_equal(g["input"], w["input"])
+        np.testing.assert_array_equal(g["input"], w["input"][rows])
+        np.testing.assert_array_equal(g["sign"], w["sign"][rows])
 
 
 # -------------------------------------------------------------------- main
