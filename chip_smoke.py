@@ -89,7 +89,22 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                selection's peak memory on a 1280- and a 2304-tile slide
                within 64 MiB, ms per step, peak memory and the device's
                idle share over a profiled epoch;
- 11. parallel_camelyon — streaming selection under a mesh and B_seq < B
+ 11. mnist_shipped — the training driver at the shipped MNIST config on
+               the store as shipped: 5000 + 1000 images at 1500x1500 from
+               the sklearn digits (the generator's defaults), written by
+               two spawned processes, one a split, that start with the
+               script; one epoch through ``ips_tpu_torch.main.main``: 313
+               optimizer steps (39 K = 8 groups and a one-step group on
+               the last batch, 8 rows padded to 16), 63 eval batches (the
+               last of 8 rows), 8 ``score_logits`` launches per step and
+               per eval batch, finite metrics lines, the first 4 train and
+               2 test samples' digest against the JAX package's store's
+               (``SHIPPED_DIGEST``); the store's generation and load
+               seconds, host RSS, ms per step over the epoch, each group's
+               and the eval batches' ms, peak memory, and the device's
+               idle share over a window of the store that ends as the
+               epoch does (2 K-groups and the one-step group);
+ 12. parallel_camelyon — streaming selection under a mesh and B_seq < B
                over data ranks at the full width of both camelyon configs,
                two ranks sharing cuda:0 over gloo, each making phase
                camelyon_e2e's and phase camelyon's corpora from the seed:
@@ -110,7 +125,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                state bitwise equal, the test set's buckets of fewer than
                B slides evaluating nothing (``drop_last``); ms a step and
                peaks, which are no multi-card speeds;
- 12. traffic — the traffic-sign path through the driver at the full width
+ 13. traffic — the traffic-sign path through the driver at the full width
                of config/traffic_config.yml (1200x1600 RGB, N = 192
                patches of 100x100x3, M = 10, I = 32, B = 16, ResNet-18
                with all 4 blocks, D = 512, bf16, fp32 host normalization,
@@ -123,14 +138,14 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                scorer's, a train item's host time (augment, normalize and
                patchify), ms per step, peak memory and a profiler
                breakdown of one epoch with the device's idle share;
- 13. hostops — the C++ host library (csrc/hostops.cpp) built with g++ on
+ 14. hostops — the C++ host library (csrc/hostops.cpp) built with g++ on
                this machine (build seconds), ``densify_patchify``,
                ``patchify_dense`` and ``gather_patches`` (float32, into a new
                array and into a pinned buffer) bitwise against their numpy
                versions at the MNIST shapes (16 images of 1500x1500, 900
                patches of 50x50, a chunk of I = 100), host ms of each
                against numpy's;
- 14. int8    — int8 selection (``select_dtype: int8``) at the full MNIST
+ 15. int8    — int8 selection (``select_dtype: int8``) at the full MNIST
                width: one select against the plain scorer's int8 selection
                (near-ties allowed), its device ms against the bf16
                selection's on the same batch; 4 ``Predictor`` requests (8
@@ -141,7 +156,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                device's idle share); one streamed int8 selection of a
                camelyon_e2e slide at full width (ResNet-50/2 bottleneck
                blocks, uint8 224x224 tiles) and its peak;
- 15. export  — the export CLI's ``main`` (ips_tpu_torch/export.py) on
+ 16. export  — the export CLI's ``main`` (ips_tpu_torch/export.py) on
                the full-width MNIST Predictor on the card with
                ``--selftest``; the artifact
                loaded in a fresh process that imports only
@@ -151,7 +166,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                probabilities within 1e-5; artifact size, load seconds,
                request latency against the live Predictor; the operator's
                dispatch against the direct ctypes call;
- 16. preprocess — the slide-preprocessing pipeline and pretrained weights
+ 17. preprocess — the slide-preprocessing pipeline and pretrained weights
                (``ips_tpu_torch.data.camelyon`` synth, otsu, foreground,
                extract_feat; ``models.pretrained``): 4 train and 2 test
                slides of 5600x5600 made in memory from the seed; otsu
@@ -167,7 +182,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                synchronous loop, the first 8 tiles within a stated bf16
                tolerance of the CPU forward; then one evaluation of the
                camelyon feature config on those features;
- 17. conv_probe — the fused BasicBlock kernel against its plain version
+ 18. conv_probe — the fused BasicBlock kernel against its plain version
                at the layer1 shapes (1600, 13, 13, 64), paired
                (800, 13, 13, 128), a ragged one and layer2_block1's
                (1600, 7, 7, 128), timed in phase kernels; the main
@@ -286,6 +301,26 @@ N_OVERFIT_STEPS = 20
 MNIST_TRAIN_IMAGES = 5000
 # phase driver: one K = 8 group of B = 16 a train epoch, 2 eval batches
 DRIVER_TRAIN_IMAGES, DRIVER_TEST_IMAGES, DRIVER_EPOCHS = 128, 32, 2
+# phase mnist_shipped: the store as shipped, 5000 + 1000 images at
+# 1500x1500 from the sklearn digits with the generator CLI's defaults
+# (ips_tpu_torch/data/mnist.py), made by two spawned processes that start
+# with the script; one epoch. 5000 = 312 * 16 + 8: the last train batch
+# is 8 rows padded to 16, and 313 = 39 * 8 + 1 steps end in a K-group of
+# one step; 1000 = 62 * 16 + 8 eval rows end in a batch of 8
+SHIPPED_TRAIN_IMAGES, SHIPPED_TEST_IMAGES = 5000, 1000
+# the store's first 4 train and 2 test samples (store_digest): what the
+# JAX package's generator writes for that seed and source
+# (tests/test_torch_mnist_shipped.py computes it from ips_tpu)
+SHIPPED_DIGEST_SAMPLES = (4, 2)
+SHIPPED_DIGEST = ("ea8830c53b89d04ec87a0d4a2fa8c14c"
+                  "32270cb4b0d5c6cef75e263a2dd22634")
+# seconds the phase waits for the store beyond the phases before it
+SHIPPED_STORE_WAIT = 600
+# the idle share is taken as phase driver takes it, over a window of the
+# store that ends as the epoch does: 2 K-groups and a one-step group on a
+# padded batch (16 * 16 + 8 images), unprofiled and then profiled (a
+# profile of the whole epoch holds ~800k device ops)
+SHIPPED_WINDOW_IMAGES = 16 * 16 + 8
 # phase camelyon: (slides, rows drawn from [lo, hi)) of the synthetic
 # corpus; the train set is one K = 4 group of four B = 16 steps at the
 # reference's N = 10k bucket, the test set crosses buckets 5000..15000
@@ -1148,7 +1183,7 @@ def phase_driver(torch, np, device, card, tmp):
         json.dump(conf_d, f)
     conf = config_from_dict(conf_d)
     n_iter = math.ceil((conf.N - conf.M) / conf.I)
-    steps = DRIVER_TRAIN_IMAGES // conf.B
+    steps = math.ceil(DRIVER_TRAIN_IMAGES / conf.B)
     evals = math.ceil(DRIVER_TEST_IMAGES / conf.B)
 
     # (a) two epochs through the CLI entry point, on the card by default
@@ -1244,6 +1279,236 @@ def phase_driver(torch, np, device, card, tmp):
             f"{epoch_s[1] / steps * 1e3:.2f} ms (idle share "
             f"{1 - busy / (epoch_s[1] * 1e3):.3f}); card {card}")
     return launches, data, rows
+
+
+# ------------------------------------------------------------ mnist_shipped
+def shipped_store(tmp):
+    """Starts writing phase mnist_shipped's store under ``tmp`` in two
+    spawned processes, one a split; returns (directory, writers)."""
+    from ips_tpu_torch.data.mnist import SplitWriters
+    data = os.path.join(tmp, "mnist")
+    return data, SplitWriters(data, n_train=SHIPPED_TRAIN_IMAGES,
+                              n_test=SHIPPED_TEST_IMAGES)
+
+
+def store_digest(train, test):
+    """sha256 over the first SHIPPED_DIGEST_SAMPLES train and test samples
+    of a megapixel-MNIST store (each field's dtype, shape and bytes)."""
+    import hashlib
+
+    import numpy as np
+    h = hashlib.sha256()
+    n_train, n_test = SHIPPED_DIGEST_SAMPLES
+    for s in list(train[:n_train]) + list(test[:n_test]):
+        for a in (*s["input"], s["majority"], s["max"], s["top"],
+                  s["multi"]):
+            a = np.asarray(a)
+            h.update(f"{a.dtype.str}{a.shape}".encode())
+            h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _rss_mib():
+    """This process's resident and peak resident memory in MiB (the peak
+    from getrusage: the card's machine reports no VmHWM)."""
+    import resource
+    with open("/proc/self/status") as f:
+        kv = dict(line.split(":", 1) for line in f)
+    return (int(kv["VmRSS"].split()[0]) / 1024,
+            resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024)
+
+
+class DispatchTimer:
+    """Host wall (synchronised) of every fused sparse train and eval
+    dispatch the loop makes while active, by kind (a dispatch's own calls
+    of another, as the eval group's of single steps, are not counted):
+    the loop moves each dispatch's results to the host at once, so the
+    sync adds no wait."""
+
+    KINDS = {"fused_sparse_multi_step": "train_group",
+             "fused_sparse_step": "train_single",
+             "fused_sparse_eval_multi_step": "eval_group",
+             "fused_sparse_eval_step": "eval_single"}
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls = {k: [] for k in self.KINDS.values()}
+        self.depth = 0
+
+    def __enter__(self):
+        from ips_tpu_torch.train.steps import IPSTrainer
+        self._saved = {m: getattr(IPSTrainer, m) for m in self.KINDS}
+        for method, kind in self.KINDS.items():
+            setattr(IPSTrainer, method, self._timed(self._saved[method],
+                                                    kind))
+        return self
+
+    def _timed(self, fn, kind):
+        torch, calls = self.torch, self.calls[kind]
+
+        def timed(trainer, *a, **kw):
+            if self.depth:
+                return fn(trainer, *a, **kw)
+            t0 = time.perf_counter()
+            self.depth += 1
+            try:
+                out = fn(trainer, *a, **kw)
+            finally:
+                self.depth -= 1
+            torch.cuda.synchronize()
+            calls.append(time.perf_counter() - t0)
+            return out
+        return timed
+
+    def __exit__(self, *exc):
+        from ips_tpu_torch.train.steps import IPSTrainer
+        for method, fn in self._saved.items():
+            setattr(IPSTrainer, method, fn)
+        return False
+
+
+def phase_mnist_shipped(torch, np, device, card, tmp, data, writers):
+    """The driver at the shipped config on the shipped store: one epoch
+    through the CLI entry; returns score_logits' launches in it."""
+    from ips_tpu_torch import main as driver
+    from ips_tpu_torch.config import config_from_dict
+    from ips_tpu_torch.data.loader import Dataset, DataLoader
+    from ips_tpu_torch.ops import score_kernel as sk
+    from ips_tpu_torch.train.loop import train_one_epoch
+    from ips_tpu_torch.train.metrics import MetricsLogger
+    t0 = time.perf_counter()
+    seconds = writers.wait(SHIPPED_STORE_WAIT)
+    log(f"  store: {SHIPPED_TRAIN_IMAGES} + {SHIPPED_TEST_IMAGES} images "
+        f"at 1500x1500 (sklearn digits, n_noise 50, seed {SEED}) written "
+        f"by two spawned processes in {seconds['train']:.2f} s (train) and "
+        f"{seconds['test']:.2f} s (test), beside the phases before; this "
+        f"phase waited {time.perf_counter() - t0:.2f} s for it; "
+        + ", ".join(f"{f} {os.path.getsize(os.path.join(data, f)) / 1e6:.1f}"
+                    " MB" for f in ("train.npy", "test.npy")))
+    metrics = os.path.join(tmp, "shipped.jsonl")
+    conf_d = dict(MNIST_CONFIG, data_dir=data, n_epoch=1,
+                  metrics_path=metrics)
+    cfg = os.path.join(tmp, "shipped.json")
+    with open(cfg, "w") as f:
+        json.dump(conf_d, f)
+    conf = config_from_dict(conf_d)
+    n_iter = math.ceil((conf.N - conf.M) / conf.I)
+    steps = math.ceil(SHIPPED_TRAIN_IMAGES / conf.B)
+    evals = math.ceil(SHIPPED_TEST_IMAGES / conf.B)
+
+    # the store as the run loads it: seconds, host memory, digest
+    loaded = {}
+    build = driver.build_datasets
+
+    def timed_build(c, name):
+        loaded["rss0"] = _rss_mib()
+        t = time.perf_counter()
+        out = build(c, name)
+        loaded["s"] = time.perf_counter() - t
+        loaded["rss"] = _rss_mib()
+        loaded["train"] = out[0]
+        loaded["digest"] = store_digest(out[0]._data, out[1]._data)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sk.logits.launches = 0
+    driver.build_datasets = timed_build
+    t0 = time.perf_counter()
+    try:
+        with DispatchTimer(torch) as timer:
+            trainer, _, _ = driver.main(["--config", cfg])
+    finally:
+        driver.build_datasets = build
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sk.logits.launches
+    peak = torch.cuda.max_memory_allocated()
+    rss, hwm = _rss_mib()
+    log(f"  loaded the store in {loaded['s']:.2f} s: host RSS "
+        f"{loaded['rss0'][0]:.1f} MiB before loading, "
+        f"{loaded['rss'][0]:.1f} MiB after, {rss:.1f} MiB after the run, "
+        f"peak RSS {hwm:.1f} MiB (this process, CUDA's host memory "
+        "included)")
+    log(f"  store digest {loaded['digest']} (first "
+        f"{SHIPPED_DIGEST_SAMPLES[0]} train, {SHIPPED_DIGEST_SAMPLES[1]} "
+        f"test samples); expected {SHIPPED_DIGEST}")
+    if loaded["digest"] != SHIPPED_DIGEST:
+        raise AssertionError("the store differs from the JAX package's")
+    if trainer.device.type != "cuda":
+        raise AssertionError(f"the driver ran on {trainer.device}")
+    if trainer.step != steps:
+        raise AssertionError(f"{trainer.step} optimizer steps, expected "
+                             f"{steps}")
+    K = conf.steps_per_dispatch
+    calls = {k: len(v) for k, v in timer.calls.items()}
+    want_calls = {"train_group": steps // K, "train_single": steps % K,
+                  "eval_group": evals // K, "eval_single": evals % K}
+    if calls != want_calls:
+        raise AssertionError(f"dispatches {calls}, expected {want_calls}")
+    want = n_iter * (steps + evals)
+    if launches != want:
+        raise AssertionError(f"score kernel launched {launches} times, "
+                             f"expected {want}")
+    rows = metrics_rows(metrics)
+    check_metrics_rows(np, conf, rows, [0])
+    epoch_s = rows[0]["train_seconds"]
+    groups = timer.calls["train_group"]
+    eval_s = sum(timer.calls["eval_group"]) + sum(timer.calls["eval_single"])
+    log(f"  mnist_shipped: 1 epoch of {trainer.step} optimizer steps "
+        f"({calls['train_group']} K = {K} groups and {calls['train_single']}"
+        f" one-step group on the padded batch of "
+        f"{SHIPPED_TRAIN_IMAGES % conf.B} rows) and {evals} eval batches "
+        f"({calls['eval_group']} groups, {calls['eval_single']} single) in "
+        f"{wall:.2f} s through main.main; {launches} score_logits launches"
+        f" ({launches / (steps + evals):g} per step and per eval batch)")
+    log(f"  mnist_shipped: epoch wall {epoch_s:.4f} s: "
+        f"{epoch_s / steps * 1e3:.2f} ms per optimizer step, loader and "
+        f"copies included; K-groups {min(groups) * 1e3 / K:.2f}-"
+        f"{max(groups) * 1e3 / K:.2f} ms a step (first group "
+        f"{groups[0] * 1e3:.2f} ms, median "
+        f"{sorted(groups)[len(groups) // 2] * 1e3:.2f} ms); the last, "
+        f"one-step group {timer.calls['train_single'][-1] * 1e3:.2f} ms; "
+        f"eval {eval_s / evals * 1e3:.2f} ms per batch; peak memory "
+        f"{peak / 2**20:.1f} MiB (max_memory_allocated); card {card}")
+    for r in rows:
+        log(f"    {r['split']} epoch {r['epoch']}: " + ", ".join(
+            f"{t.name} {r[f'{t.name}_loss']:.4f}/"
+            f"{r[f'{t.name}_{t.metric}']:.3f}" for t in conf.task_list))
+
+    # the idle share over a window of the store that ends as the epoch
+    # does (SHIPPED_WINDOW_IMAGES), as phase driver takes it: the window's
+    # unprofiled wall, then the device's busy time in a profiled run
+    class Window(Dataset):
+        def __init__(self, inner, n):
+            self.inner, self.n = inner, n
+
+        def __len__(self):
+            return self.n
+
+        def __getitem__(self, i):
+            return self.inner[i]
+
+    loader = DataLoader(Window(loaded.pop("train"), SHIPPED_WINDOW_IMAGES),
+                        batch_size=conf.B, shuffle=True,
+                        num_workers=conf.n_worker, seed=conf.seed)
+    w_steps = len(loader)
+
+    def window():
+        train_one_epoch(trainer, loader, 1, MetricsLogger(conf.task_list),
+                        conf)
+    t0 = time.perf_counter()
+    window()
+    torch.cuda.synchronize()
+    w_wall = time.perf_counter() - t0
+    busy = breakdown(torch, window, w_wall,
+                     what=f"window of {w_steps} steps")
+    if busy is not None:
+        log(f"  mnist_shipped step: device busy {busy / w_steps:.2f} ms of "
+            f"{w_wall / w_steps * 1e3:.2f} ms over the window (idle share "
+            f"{1 - busy / (w_wall * 1e3):.3f}); the epoch's "
+            f"{epoch_s / steps * 1e3:.2f} ms a step; card {card}")
+    return launches
 
 
 # ---------------------------------------------------------------- parallel
@@ -1451,7 +1716,7 @@ def phase_parallel(torch, np, device, card, data, driver_rows):
     from ips_tpu_torch.models.ips_net import IPSModel
     from ips_tpu_torch.ops import score_kernel as sk
     from ips_tpu_torch.parallel.ips_sharded import ips_select_cp
-    from ips_tpu_torch.parallel.launch import free_port, run_world
+    from ips_tpu_torch.parallel.launch import run_world
     from ips_tpu_torch.train.steps import IPSTrainer
     repo = os.path.dirname(os.path.abspath(__file__))
     tmp = tempfile.mkdtemp(prefix="ips_tpu_torch_parallel_")
@@ -1594,10 +1859,10 @@ def phase_parallel(torch, np, device, card, data, driver_rows):
                            multihost=True, cpu_collectives="gloo",
                            mesh_data=2), f)
         t0 = time.perf_counter()
+        # --standalone: the agent hosts the rendezvous on a port the
+        # system picks and holds it for the run
         cmd = [sys.executable, "-m", "torch.distributed.run",
-               "--nproc_per_node", "2", "--nnodes", "1",
-               "--master_addr", "localhost",
-               "--master_port", str(free_port()),
+               "--standalone", "--nproc_per_node", "2",
                "-m", "ips_tpu_torch.main", "--config", cfg]
         proc = subprocess.run(cmd, cwd=repo, capture_output=True, text=True,
                               timeout=PARALLEL_TIMEOUT)
@@ -3367,6 +3632,19 @@ def main() -> int:
     fp32_matmuls()
     device = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    # phase mnist_shipped's store, written beside the phases before it
+    shipped_tmp = tempfile.mkdtemp(prefix="ips_tpu_torch_shipped_")
+    shipped_data, writers = shipped_store(shipped_tmp)
+    try:
+        return _phases(torch, np, device, t_start, shipped_tmp,
+                       shipped_data, writers)
+    finally:
+        writers.close()
+        shutil.rmtree(shipped_tmp, ignore_errors=True)
+
+
+def _phases(torch, np, device, t_start, shipped_tmp, shipped_data,
+            writers):
     with Phase("device"):
         kind, card = phase_device(torch)
     with Phase("build"):
@@ -3393,6 +3671,9 @@ def main() -> int:
         camelyon_launches = phase_camelyon(torch, np, device, card)
     with Phase("camelyon_e2e"):
         e2e_launches = phase_camelyon_e2e(torch, np, device, card)
+    with Phase("mnist_shipped"):
+        shipped_launches = phase_mnist_shipped(
+            torch, np, device, card, shipped_tmp, shipped_data, writers)
     with Phase("parallel_camelyon"):
         pc_launches = phase_parallel_camelyon(torch, np, device, card)
     with Phase("traffic"):
@@ -3410,6 +3691,7 @@ def main() -> int:
                                  "parallel": parallel_launches,
                                  "camelyon": camelyon_launches,
                                  "camelyon_e2e": e2e_launches,
+                                 "mnist_shipped": shipped_launches,
                                  "parallel_camelyon": pc_launches,
                                  "traffic": traffic_launches,
                                  "int8": int8_launches,

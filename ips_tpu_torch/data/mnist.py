@@ -17,9 +17,18 @@ generated by either package loads in both.
 
 Digit sources (no network is assumed):
   * ``mnist``     — a local ``mnist.npz`` (keras cache format)
-  * ``sklearn``   — sklearn's built-in 8x8 digits, upsampled to 28x28
+  * ``sklearn``   — the 1797 8x8 digits that scikit-learn ships
+                    (``load_digits``), upsampled to 28x28; the default
   * ``synthetic`` — procedurally rendered digit glyphs
 
+The ``sklearn`` source needs no scikit-learn: the package carries the
+digits in ``digits8x8.npz`` (``images`` uint8 (1797, 8, 8) in 0..16,
+``labels`` int64), written once from ``sklearn.datasets.load_digits()``.
+They are scikit-learn's copy (BSD-3-Clause) of the test set of the UCI
+"Optical Recognition of Handwritten Digits" data (E. Alpaydin and C.
+Kaynak, 1998).
+
+    python -m ips_tpu_torch.data.mnist <output_directory>   # 5000 + 1000
     python -m ips_tpu_torch.data.mnist --n_train 128 --n_test 32 \
         --digit_source synthetic <output_directory>
 """
@@ -29,6 +38,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -80,13 +90,19 @@ def _synthetic_digits(rng: np.random.Generator, n_per_class: int = 200
     return np.stack(imgs)[order], np.array(labels)[order]
 
 
+DIGITS_8X8 = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "digits8x8.npz")
+
+
 def _sklearn_digits() -> Tuple[np.ndarray, np.ndarray]:
-    from sklearn.datasets import load_digits
-    d = load_digits()
-    x = (d.images / 16.0).astype(np.float32)        # (N, 8, 8)
+    """``load_digits()`` from the bundled copy, upsampled as the JAX
+    package upsamples it (bitwise: the same float64 quotient)."""
+    with np.load(DIGITS_8X8) as d:
+        images, labels = d["images"], d["labels"]
+    x = (images / 16.0).astype(np.float32)          # (N, 8, 8)
     x = np.kron(x, np.ones((1, 3, 3), np.float32))  # (N, 24, 24)
     x = np.pad(x, ((0, 0), (2, 2), (2, 2)))         # (N, 28, 28)
-    return x, d.target.astype(np.int64)
+    return x, labels
 
 
 def load_digit_bank(source: str = "sklearn", train: bool = True,
@@ -139,31 +155,88 @@ def _make_noise_patterns(rng: np.random.Generator, n_noise: int) -> np.ndarray:
     return noise
 
 
-def generate_megapixel_mnist(out_dir: str, n_train: int = 5000,
-                             n_test: int = 1000, width: int = 1500,
-                             height: int = 1500, noise: bool = True,
-                             n_noise: int = 50, seed: int = 0,
-                             digit_source: str = "sklearn",
-                             mnist_path: Optional[str] = None) -> None:
-    """Write parameters.json + train.npy/test.npy."""
+def generate_split(out_dir: str, split: str, n_samples: int, *,
+                   width: int, height: int, noise: bool, n_noise: int,
+                   seed: int, digit_source: str,
+                   mnist_path: Optional[str]) -> None:
+    """Write ``<split>.npy`` (``split`` is ``train`` or ``test``) from the
+    split's own generator, ``default_rng(seed + is_train)``."""
+    is_train = split == "train"
+    digits, labels = load_digit_bank(digit_source, train=is_train,
+                                     mnist_path=mnist_path, seed=seed)
+    rng = np.random.default_rng(seed + int(is_train))
+    noise_bank = _make_noise_patterns(rng, n_noise) if noise else None
+    data = []
+    for _ in range(n_samples):
+        data.append(_make_sample(rng, digits, labels, width, height,
+                                 noise_bank, n_noise))
+    np.save(os.path.join(out_dir, f"{split}.npy"),
+            np.array(data, dtype=object), allow_pickle=True)
+
+
+def _store_splits(out_dir: str, n_train: int = 5000, n_test: int = 1000,
+                  width: int = 1500, height: int = 1500, noise: bool = True,
+                  n_noise: int = 50, seed: int = 0,
+                  digit_source: str = "sklearn",
+                  mnist_path: Optional[str] = None):
+    """Write parameters.json; returns each split's ``generate_split``
+    arguments."""
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "parameters.json"), "w") as f:
         json.dump({"n_train": n_train, "n_test": n_test, "width": width,
                    "height": height, "noise": noise, "n_noise": n_noise,
                    "seed": seed, "digit_source": digit_source}, f, indent=4)
+    kw = dict(width=width, height=height, noise=noise, n_noise=n_noise,
+              seed=seed, digit_source=digit_source, mnist_path=mnist_path)
+    return [((out_dir, "train", n_train), kw), ((out_dir, "test", n_test), kw)]
 
-    for split, n_samples in (("train", n_train), ("test", n_test)):
-        is_train = split == "train"
-        digits, labels = load_digit_bank(digit_source, train=is_train,
-                                         mnist_path=mnist_path, seed=seed)
-        rng = np.random.default_rng(seed + int(is_train))
-        noise_bank = _make_noise_patterns(rng, n_noise) if noise else None
-        data = []
-        for _ in range(n_samples):
-            data.append(_make_sample(rng, digits, labels, width, height,
-                                     noise_bank, n_noise))
-        np.save(os.path.join(out_dir, f"{split}.npy"),
-                np.array(data, dtype=object), allow_pickle=True)
+
+def generate_megapixel_mnist(out_dir: str, **kw) -> None:
+    """Write parameters.json + train.npy/test.npy. Keywords: n_train
+    (5000), n_test (1000), width, height (1500), noise (True), n_noise
+    (50), seed (0), digit_source ("sklearn"), mnist_path."""
+    for args, split_kw in _store_splits(out_dir, **kw):
+        generate_split(*args, **split_kw)
+
+
+def _timed_split(*args, **kw) -> float:
+    t0 = time.perf_counter()
+    generate_split(*args, **kw)
+    return time.perf_counter() - t0
+
+
+class SplitWriters:
+    """``generate_megapixel_mnist(out_dir, **kw)``'s store with each split
+    written by a spawned process of its own, started at construction; the
+    two splits draw from separate generators, so the files are the same
+    bytes. ``close()`` stops the processes (a no-op after ``wait()``)."""
+
+    def __init__(self, out_dir: str, **kw):
+        import multiprocessing
+        splits = _store_splits(out_dir, **kw)
+        self._pool = multiprocessing.get_context("spawn").Pool(len(splits))
+        self._jobs = {args[1]: self._pool.apply_async(_timed_split, args,
+                                                      split_kw)
+                      for args, split_kw in splits}
+
+    def wait(self, timeout: Optional[float] = None) -> Dict[str, float]:
+        """Each split's seconds; raises ``multiprocessing.TimeoutError``
+        (and stops the processes) when ``timeout`` seconds pass first."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        try:
+            seconds = {k: job.get(None if deadline is None else max(
+                deadline - time.monotonic(), 0))
+                for k, job in self._jobs.items()}
+        except BaseException:
+            self.close()
+            raise
+        self._pool.close()
+        self._pool.join()
+        return seconds
+
+    def close(self) -> None:
+        self._pool.terminate()
+        self._pool.join()
 
 
 def _place_nonoverlapping(rng: np.random.Generator, n: int, H: int, W: int

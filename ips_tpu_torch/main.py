@@ -24,7 +24,7 @@ context parallelism (``ips_tpu_torch.parallel``): each rank is one
 device, ``mesh_data x mesh_patch`` of them, e.g. two ranks sharing one
 card (gloo; NCCL refuses two ranks on one device)::
 
-    python -m torch.distributed.run --nproc_per_node 2 \
+    python -m torch.distributed.run --standalone --nproc_per_node 2 \
         -m ips_tpu_torch.main --dataset mnist --config cfg.json
 
 with ``multihost: true``, ``cpu_collectives: gloo`` and ``mesh_data: 2``

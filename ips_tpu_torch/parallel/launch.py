@@ -5,32 +5,34 @@
 starts ``world`` processes of ``python -m ips_tpu_torch.parallel.launch
 pkg.module:function args...``, each with the environment that ``python
 -m torch.distributed.run`` sets (``RANK``, ``LOCAL_RANK``,
-``WORLD_SIZE``, ``MASTER_ADDR=localhost``, a free ``MASTER_PORT`` of the
-world's own), and calls ``function(args)`` in each; the function joins
-the process group itself. When a rank fails, or the world outlives its
-deadline, every rank is killed and ``run_world`` raises with each rank's
-output: a collective left waiting fails instead of hanging.
+``WORLD_SIZE``, ``MASTER_ADDR=localhost`` and ``MASTER_PORT``), and calls
+``function(args)`` in each; the function joins the process group itself.
+When a rank fails, or the world outlives its deadline, every rank is
+killed and ``run_world`` raises with each rank's output: a collective
+left waiting fails instead of hanging.
+
+The world's rendezvous store is hosted by ``run_world`` itself, as
+``torch.distributed.run``'s agent hosts it: a ``TCPStore`` on a port the
+system picks, held from before the first rank starts until the last one
+has ended, and ``TORCHELASTIC_USE_AGENT_STORE=True`` makes every rank's
+``env://`` rendezvous a client of it. No rank listens on a number chosen
+earlier, so worlds started side by side cannot take each other's port.
 """
 
 from __future__ import annotations
 
 import importlib
 import os
-import socket
 import subprocess
 import sys
 import tempfile
 import time
 from typing import Dict, List, Optional, Sequence
 
+import torch.distributed as dist
+
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
 
 
 def _tail(path: str, n: int = 6000) -> str:
@@ -44,7 +46,8 @@ def run_world(target: str, world: int, args: Sequence[str] = (),
     """Run ``target`` ("module:function") on ``world`` ranks; returns each
     rank's output (stdout and stderr together), or raises RuntimeError
     when a rank fails or ``timeout`` seconds pass."""
-    port = str(free_port())
+    store = dist.TCPStore("localhost", 0, is_master=True,
+                          wait_for_workers=False)
     base = dict(os.environ if env is None else env)
     base["PYTHONPATH"] = os.pathsep.join(
         [REPO, *python_path] + ([base["PYTHONPATH"]]
@@ -55,7 +58,8 @@ def run_world(target: str, world: int, args: Sequence[str] = (),
         for r in range(world):
             e = dict(base, RANK=str(r), LOCAL_RANK=str(r),
                      WORLD_SIZE=str(world), MASTER_ADDR="localhost",
-                     MASTER_PORT=port)
+                     MASTER_PORT=str(store.port),
+                     TORCHELASTIC_USE_AGENT_STORE="True")
             with open(logs[r], "w") as out:
                 procs.append(subprocess.Popen(
                     [sys.executable, "-m", "ips_tpu_torch.parallel.launch",
@@ -90,11 +94,15 @@ def run_world(target: str, world: int, args: Sequence[str] = (),
 
 def _rank_entry(argv: Sequence[str]) -> None:
     """One rank: TF32 off (as every entry point of the port), then the
-    target with the remaining arguments."""
+    target with the remaining arguments; a process group the target left
+    open ends before the interpreter does (torch can abort at exit with
+    its threads still running)."""
     from ips_tpu_torch.utils.device import fp32_matmuls
     fp32_matmuls()
     module, _, name = argv[0].partition(":")
     getattr(importlib.import_module(module), name)(list(argv[1:]))
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

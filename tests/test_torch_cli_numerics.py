@@ -30,6 +30,7 @@ CLIS = {
     "ips_tpu_torch.scripts.step_memory": ["--no-such-flag"],
     "ips_tpu_torch.scripts.e2e_learning": ["--no-such-flag"],
     "ips_tpu_torch.scripts.traffic_learning": ["--no-such-flag"],
+    "ips_tpu_torch.scripts.mnist_learning": ["--no-such-flag"],
     "ips_tpu_torch.scripts.kernel_times": None,
     "ips_tpu_torch.scripts.train_parity": None,
 }
