@@ -31,6 +31,7 @@ CLIS = {
     "ips_tpu_torch.scripts.e2e_learning": ["--no-such-flag"],
     "ips_tpu_torch.scripts.traffic_learning": ["--no-such-flag"],
     "ips_tpu_torch.scripts.mnist_learning": ["--no-such-flag"],
+    "ips_tpu_torch.scripts.init_study": ["--no-such-flag"],
     "ips_tpu_torch.scripts.kernel_times": None,
     "ips_tpu_torch.scripts.train_parity": None,
 }

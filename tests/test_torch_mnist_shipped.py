@@ -132,10 +132,11 @@ def test_smoke_store_counts_leave_the_tails():
 
 
 # ------------------------------------------------ the JAX initial weights
-def write_jax_init(path, seed=0):
-    """The JAX package's initial variables for the shipped MNIST config at
-    ``seed`` (``init_ips_model`` with ``PRNGKey(seed)``, what
-    ``ips_tpu.main`` starts from) as a flat reference-named ``.npz``, which
+def write_jax_init(path, seed=0, config=None):
+    """The JAX package's initial variables for the shipped MNIST config
+    (or the config dict ``config``) at ``seed`` (``init_ips_model`` with
+    ``PRNGKey(seed)``, what ``ips_tpu.main`` starts from) as a flat
+    reference-named ``.npz``, which
     ``python -m ips_tpu_torch.scripts.mnist_learning --init`` reads.
     From the repository root, with JAX on the CPU::
 
@@ -145,7 +146,7 @@ def write_jax_init(path, seed=0):
     import jax
     from ips_tpu.models.ips_net import init_ips_model
     _, params, batch_stats = init_ips_model(
-        j_config(chip_smoke.MNIST_CONFIG), jax.random.PRNGKey(seed))
+        j_config(config or chip_smoke.MNIST_CONFIG), jax.random.PRNGKey(seed))
     np.savez(path, **weights.flatten_variables(params, batch_stats))
 
 
