@@ -104,7 +104,24 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                and the eval batches' ms, peak memory, and the device's
                idle share over a window of the store that ends as the
                epoch does (2 K-groups and the one-step group);
- 12. parallel_camelyon — streaming selection under a mesh and B_seq < B
+ 12. trained — the JAX package's TPU-trained MNIST checkpoints, carried
+               to the port as flat ``.npz`` files
+               (ips_tpu_torch/results/trained/), on phase mnist_shipped's
+               store: ``train.loop.evaluate`` of ``mnist150_e150`` and
+               ``mnist40_e44`` over the 1000 test images under each
+               run's overrides, each task's accuracy and mean loss held
+               against the TPU's line; the first served through
+               ``infer.Predictor`` batch by batch with the eval's
+               predictions image by image; the int8 probe on
+               ``mnist40_e44`` (per-image Jaccard of int8 against bf16
+               kept sets, int8 metrics) against the TPU's; the train
+               state ``mnist150_e100`` written as the port's
+               ``epoch_100.pt`` and resumed through ``main.run`` for one
+               epoch, its lr, losses and test accuracy against the TPU's
+               epoch 100 (bounds (i)-(iii) of
+               ``scripts/trained_eval.BOUNDS``); 8 ``score_logits``
+               launches per eval batch, request, selection and step;
+ 13. parallel_camelyon — streaming selection under a mesh and B_seq < B
                over data ranks at the full width of both camelyon configs,
                two ranks sharing cuda:0 over gloo, each making phase
                camelyon_e2e's and phase camelyon's corpora from the seed:
@@ -125,7 +142,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                state bitwise equal, the test set's buckets of fewer than
                B slides evaluating nothing (``drop_last``); ms a step and
                peaks, which are no multi-card speeds;
- 13. traffic — the traffic-sign path through the driver at the full width
+ 14. traffic — the traffic-sign path through the driver at the full width
                of config/traffic_config.yml (1200x1600 RGB, N = 192
                patches of 100x100x3, M = 10, I = 32, B = 16, ResNet-18
                with all 4 blocks, D = 512, bf16, fp32 host normalization,
@@ -138,14 +155,14 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                scorer's, a train item's host time (augment, normalize and
                patchify), ms per step, peak memory and a profiler
                breakdown of one epoch with the device's idle share;
- 14. hostops — the C++ host library (csrc/hostops.cpp) built with g++ on
+ 15. hostops — the C++ host library (csrc/hostops.cpp) built with g++ on
                this machine (build seconds), ``densify_patchify``,
                ``patchify_dense`` and ``gather_patches`` (float32, into a new
                array and into a pinned buffer) bitwise against their numpy
                versions at the MNIST shapes (16 images of 1500x1500, 900
                patches of 50x50, a chunk of I = 100), host ms of each
                against numpy's;
- 15. int8    — int8 selection (``select_dtype: int8``) at the full MNIST
+ 16. int8    — int8 selection (``select_dtype: int8``) at the full MNIST
                width: one select against the plain scorer's int8 selection
                (near-ties allowed), its device ms against the bf16
                selection's on the same batch; 4 ``Predictor`` requests (8
@@ -156,7 +173,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                device's idle share); one streamed int8 selection of a
                camelyon_e2e slide at full width (ResNet-50/2 bottleneck
                blocks, uint8 224x224 tiles) and its peak;
- 16. export  — the export CLI's ``main`` (ips_tpu_torch/export.py) on
+ 17. export  — the export CLI's ``main`` (ips_tpu_torch/export.py) on
                the full-width MNIST Predictor on the card with
                ``--selftest``; the artifact
                loaded in a fresh process that imports only
@@ -166,7 +183,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                probabilities within 1e-5; artifact size, load seconds,
                request latency against the live Predictor; the operator's
                dispatch against the direct ctypes call;
- 17. preprocess — the slide-preprocessing pipeline and pretrained weights
+ 18. preprocess — the slide-preprocessing pipeline and pretrained weights
                (``ips_tpu_torch.data.camelyon`` synth, otsu, foreground,
                extract_feat; ``models.pretrained``): 4 train and 2 test
                slides of 5600x5600 made in memory from the seed; otsu
@@ -182,7 +199,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                synchronous loop, the first 8 tiles within a stated bf16
                tolerance of the CPU forward; then one evaluation of the
                camelyon feature config on those features;
- 18. conv_probe — the fused BasicBlock kernel against its plain version
+ 19. conv_probe — the fused BasicBlock kernel against its plain version
                at the layer1 shapes (1600, 13, 13, 64), paired
                (800, 13, 13, 128), a ragged one and layer2_block1's
                (1600, 7, 7, 128), timed in phase kernels; the main
@@ -316,6 +333,13 @@ SHIPPED_DIGEST = ("ea8830c53b89d04ec87a0d4a2fa8c14c"
                   "32270cb4b0d5c6cef75e263a2dd22634")
 # seconds the phase waits for the store beyond the phases before it
 SHIPPED_STORE_WAIT = 600
+# phase trained: the JAX package's TPU-trained checkpoints as the port
+# carries them (ips_tpu_torch/results/trained/, scripts/trained_eval.py)
+# on phase mnist_shipped's store: the eval of both inference files, the
+# Predictor on the first, the int8 probe on the second, one resumed epoch
+# of the train state; the bounds (i)-(iii) of trained_eval.BOUNDS
+TRAINED_EVAL = ("mnist150_e150", "mnist40_e44")
+TRAINED_RESUME, TRAINED_RESUME_EPOCHS = "mnist150_e100", 1
 # the idle share is taken as phase driver takes it, over a window of the
 # store that ends as the epoch does: 2 K-groups and a one-step group on a
 # padded batch (16 * 16 + 8 images), unprofiled and then profiled (a
@@ -1508,6 +1532,71 @@ def phase_mnist_shipped(torch, np, device, card, tmp, data, writers):
             f"{w_wall / w_steps * 1e3:.2f} ms over the window (idle share "
             f"{1 - busy / (w_wall * 1e3):.3f}); the epoch's "
             f"{epoch_s / steps * 1e3:.2f} ms a step; card {card}")
+    return launches
+
+
+def _trained_line(line, card):
+    """One phase-trained result for the log: without the per-image
+    lists, with the card."""
+    out = {k: v for k, v in line.items() if k != "predictions"}
+    if "predictor" in out:
+        out["predictor"] = {k: v for k, v in out["predictor"].items()
+                            if k not in ("predictions", "kept")}
+    return json.dumps(dict(out, card=card))
+
+
+def phase_trained(torch, np, device, card, data):
+    """The JAX package's TPU-trained MNIST checkpoints on the card, on the
+    shipped store: (a) ``train.loop.evaluate`` of each TRAINED_EVAL file
+    over the 1000 test images under its run's overrides against the TPU's
+    line, and the first served through ``infer.Predictor`` batch by batch
+    with the same predictions image by image; (b) the int8 probe on
+    ``mnist40_e44`` against ``results/int8_trained_probe.json``; (c) the
+    train state of TRAINED_RESUME written as the port's ``epoch_<n>.pt``
+    and resumed through ``main.run`` for TRAINED_RESUME_EPOCHS epochs
+    against the TPU's lines. Returns score_logits' launches."""
+    from ips_tpu_torch import main as driver
+    from ips_tpu_torch.ops import score_kernel as sk
+    from ips_tpu_torch.scripts import trained_eval as te
+    smoke = sys.modules[__name__]
+    conf = te.file_config(smoke, TRAINED_EVAL[0], data)
+    train, test = driver.build_datasets(conf, "mnist")
+    n_iter = math.ceil((conf.N - conf.M) / conf.I)
+    evals = math.ceil(len(test) / conf.B_seq)
+    steps = math.ceil(len(train) / conf.B)
+    sk.logits.launches = 0
+    t0 = time.perf_counter()
+    lines = [te.eval_file(smoke, name, test, data, device,
+                          predictor=name == TRAINED_EVAL[0])
+             for name in TRAINED_EVAL]
+    lines.append(te.int8_probe(smoke, test, data, device,
+                               bf16_eval=lines[-1]))
+    lines.append(te.resume(smoke, TRAINED_RESUME, train, test, data, device,
+                           epochs=TRAINED_RESUME_EPOCHS))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sk.logits.launches
+    for line in lines:
+        log(f"  trained {_trained_line(line, card)}")
+    jaccard_batches = len(test) // conf.B_seq
+    want = n_iter * (evals * (len(TRAINED_EVAL) + 1 + 1)
+                     + 2 * jaccard_batches
+                     + TRAINED_RESUME_EPOCHS * (steps + evals))
+    log(f"  trained: {wall:.2f} s, {launches} score_logits launches "
+        f"(expected {want}); eval {lines[0]['ms_per_batch']:.2f} ms a "
+        f"batch, Predictor {lines[0]['predictor']['ms_per_request']:.2f} ms"
+        f" a request, int8 Jaccard pass {lines[2]['jaccard_seconds']:.2f} s,"
+        f" resumed epoch {lines[3]['rows'][0].get('train_seconds', 0):.2f} s"
+        f"; card {card}")
+    if launches != want:
+        raise AssertionError(f"score kernel launched {launches} times, "
+                             f"expected {want}")
+    if lines[3]["epochs"] != [te.manifest()[TRAINED_RESUME]["epoch"]]:
+        raise AssertionError(f"the resumed run trained epochs "
+                             f"{lines[3]['epochs']}")
+    misses = [m for line in lines for m in line["misses"]]
+    if misses:
+        raise AssertionError(f"{len(misses)} bounds missed: {misses}")
     return launches
 
 
@@ -3674,6 +3763,9 @@ def _phases(torch, np, device, t_start, shipped_tmp, shipped_data,
     with Phase("mnist_shipped"):
         shipped_launches = phase_mnist_shipped(
             torch, np, device, card, shipped_tmp, shipped_data, writers)
+    with Phase("trained"):
+        trained_launches = phase_trained(torch, np, device, card,
+                                         shipped_data)
     with Phase("parallel_camelyon"):
         pc_launches = phase_parallel_camelyon(torch, np, device, card)
     with Phase("traffic"):
@@ -3692,6 +3784,7 @@ def _phases(torch, np, device, t_start, shipped_tmp, shipped_data,
                                  "camelyon": camelyon_launches,
                                  "camelyon_e2e": e2e_launches,
                                  "mnist_shipped": shipped_launches,
+                                 "trained": trained_launches,
                                  "parallel_camelyon": pc_launches,
                                  "traffic": traffic_launches,
                                  "int8": int8_launches,

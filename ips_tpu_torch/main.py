@@ -154,9 +154,13 @@ def _profiler(device: torch.device):
 
 def run(conf: Config, dataset: str,
         device: Optional[Union[str, torch.device]] = None,
-        datasets: Optional[Tuple[Any, Any]] = None):
+        datasets: Optional[Tuple[Any, Any]] = None,
+        epochs: Optional[int] = None):
     """Train ``conf.n_epoch`` epochs with an eval after each; returns
-    (trainer, train logger, test logger). ``datasets`` (train, test)
+    (trainer, train logger, test logger). ``epochs`` stops the run that
+    many epochs after its first (a resumed run's too) and saves its
+    checkpoint there; the lr schedule still spans ``n_epoch``.
+    ``datasets`` (train, test)
     replaces the ones ``dataset`` names, e.g. images or slides held in
     memory (``TrafficSigns(conf, images=...)`` for traffic,
     ``CamelyonFeatures(conf, slides=...)``, or
@@ -193,7 +197,9 @@ def run(conf: Config, dataset: str,
     log_test = MetricsLogger(conf.task_list)
     tracker = EfficiencyTracker(conf, trainer.device)
 
-    for epoch in range(start_epoch, conf.n_epoch):
+    end = conf.n_epoch if epochs is None else min(conf.n_epoch,
+                                                  start_epoch + epochs)
+    for epoch in range(start_epoch, end):
         profiling = bool(conf.profile_dir) and epoch == start_epoch
         with (_profiler(trainer.device) if profiling
               else contextlib.nullcontext()) as prof:
@@ -229,10 +235,10 @@ def run(conf: Config, dataset: str,
             ckpt_mgr.save(trainer, epoch + 1)
             last_saved = epoch + 1
 
-    if (ckpt_mgr and main_process and last_saved != conf.n_epoch
-            and start_epoch < conf.n_epoch):
+    if (ckpt_mgr and main_process and last_saved != end
+            and start_epoch < end):
         # a resumed run that had nothing left to train already has it
-        ckpt_mgr.save(trainer, conf.n_epoch)
+        ckpt_mgr.save(trainer, end)
     return trainer, log_train, log_test
 
 

@@ -4,6 +4,9 @@ ips_tpu/utils/checkpoint.py, which keeps them with orbax).
 One file per epoch, ``epoch_<n>.pt``, holding the model's state dict
 (running statistics included), AdamW's state dict, the trainer's step
 counter and the epoch; the newest ``max_to_keep`` are kept.
+:func:`save_reference_state` writes the JAX package's train state (a
+flat ``.npz``, :func:`ips_tpu_torch.weights.load_flat_train_state`) as
+such a file, so that ``resume`` continues the reference's run.
 """
 
 from __future__ import annotations
@@ -66,3 +69,18 @@ class CheckpointManager:
             trainer.opt.load_state_dict(payload["opt"])
         trainer.step = int(payload["step"])
         return int(payload["epoch"])
+
+
+def save_reference_state(conf, npz: str, directory: str) -> str:
+    """Write the reference train state in ``npz`` as ``directory``'s
+    ``epoch_<n>.pt``, ``n`` the epochs it has trained, through a trainer
+    of ``conf`` on the CPU; returns the file's path. The driver resumed
+    on ``directory`` (``resume=true checkpoint_dir=<directory>``) then
+    trains epoch ``n`` first, as the reference's resumed run does."""
+    from ips_tpu_torch.train.steps import IPSTrainer
+    from ips_tpu_torch.weights import load_flat_train_state
+    trainer = IPSTrainer(conf, device="cpu")
+    epoch = load_flat_train_state(trainer, npz)
+    mgr = CheckpointManager(directory)
+    mgr.save(trainer, epoch)
+    return mgr._path(epoch)

@@ -22,7 +22,8 @@ The training state travels too (:func:`load_jax_train_state`): optax's
 AdamW moments ``mu`` / ``nu`` are trees shaped like ``params`` and map to
 ``torch.optim.AdamW``'s ``exp_avg`` / ``exp_avg_sq`` by the same rules,
 the Adam ``count`` to each parameter's ``step``, and ``TrainState.step``
-to the trainer's step counter.
+to the trainer's step counter; :func:`load_flat_train_state` reads the
+same state from a flat ``.npz``.
 """
 
 from __future__ import annotations
@@ -101,8 +102,7 @@ def load_flat(model: nn.Module,
     """Load a flat reference-named dict, or an ``.npz`` holding one, into
     ``model``; every key of each side must be matched."""
     if isinstance(flat, str):
-        with np.load(flat) as z:
-            flat = {k: z[k] for k in z.files}
+        flat = read_npz(flat)
     state = {key: _from_reference(flat, key, ref_key, layout, target)
              for key, ref_key, layout, target in _tensors(model)}
     _check_all_used(flat, {ref_key for _, ref_key, _, _ in _tensors(model)})
@@ -146,7 +146,13 @@ def load_adam(optimizer: torch.optim.Optimizer, model: nn.Module,
     """Load optax's Adam state (``ScaleByAdamState``: ``mu`` and ``nu``
     trees shaped like ``params``, and ``count``) into ``optimizer``, a
     ``torch.optim.AdamW`` over ``model.parameters()``."""
-    flat_mu, flat_nu = flatten_variables(mu), flatten_variables(nu)
+    _load_adam_flat(optimizer, model, flatten_variables(mu),
+                    flatten_variables(nu), count)
+
+
+def _load_adam_flat(optimizer: torch.optim.Optimizer, model: nn.Module,
+                    flat_mu: Flat, flat_nu: Flat, count: int) -> None:
+    """:func:`load_adam` from flat moments keyed ``params/<path>``."""
     used = []
     for key, ref_key, layout, target in _tensors(model):
         if not isinstance(target, nn.Parameter):
@@ -173,6 +179,64 @@ def load_jax_train_state(trainer, state) -> None:
     adam = state.opt_state.inner_state[0]
     load_adam(trainer.opt, trainer.model, adam.mu, adam.nu, int(adam.count))
     trainer.step = int(state.step)
+
+
+def read_npz(path: str) -> Flat:
+    """Every array of an ``.npz``, by key."""
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+# optax's ScaleByAdamState inside inject_hyperparams(adamw)'s state
+_ADAM = "opt_state/inner_state/0/"
+
+
+def split_train_state(flat: Mapping[str, np.ndarray]
+                      ) -> Tuple[Flat, Flat, Flat, Dict[str, int]]:
+    """A flat reference train state -> (variables, Adam ``mu``, Adam
+    ``nu``, {``count``, ``step``, ``epoch``}); the moments keyed
+    ``params/<path>`` as the variables are. ``flat`` holds the
+    reference's ``params`` and ``batch_stats`` trees and, under
+    ``opt_state/``, optax's ``inject_hyperparams(adamw)`` state
+    (``inner_state/0`` is its ``ScaleByAdamState``), with ``step`` and
+    ``epoch`` (``tests/torch_jax_checkpoints.py`` writes such files from
+    the reference's orbax checkpoints)."""
+    variables: Flat = {}
+    moments: Dict[str, Flat] = {_ADAM + "mu/": {}, _ADAM + "nu/": {}}
+    for k, v in flat.items():
+        if k.startswith(("params/", "batch_stats/")):
+            variables[k] = v
+        for prefix, tree in moments.items():
+            if k.startswith(prefix):
+                tree["params/" + k[len(prefix):]] = v
+    scalars = {"count": int(flat[_ADAM + "count"]),
+               "step": int(flat["step"]), "epoch": int(flat["epoch"])}
+    if scalars["count"] != int(flat["opt_state/count"]):
+        raise ValueError("the Adam count and the injected hyperparameters' "
+                         "count disagree")
+    return (variables, moments[_ADAM + "mu/"], moments[_ADAM + "nu/"],
+            scalars)
+
+
+def load_flat_train_state(trainer,
+                          flat: Union[str, Mapping[str, np.ndarray]]) -> int:
+    """The flat counterpart of :func:`load_jax_train_state`: a flat
+    reference train state (:func:`split_train_state`), or an ``.npz``
+    holding one, into an ``IPSTrainer``: weights and running statistics,
+    AdamW's moments with the Adam ``count`` as each parameter's ``step``
+    (an inference-only trainer takes the weights alone), and the
+    ``TrainState`` step as ``trainer.step``. Returns the epoch the state
+    was saved at: the number of epochs it has trained, so a resumed run
+    starts there."""
+    if isinstance(flat, str):
+        flat = read_npz(flat)
+    variables, mu, nu, scalars = split_train_state(flat)
+    load_flat(trainer.model, variables)
+    if trainer.opt is not None:
+        _load_adam_flat(trainer.opt, trainer.model, mu, nu,
+                        scalars["count"])
+    trainer.step = scalars["step"]
+    return scalars["epoch"]
 
 
 def save_npz(model: nn.Module, path: str) -> None:

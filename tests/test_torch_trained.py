@@ -1,6 +1,8 @@
 """The port on trained weights: ips_tpu's 150-epoch megapixel-MNIST
 checkpoint (ckpt_mnist150/150), restored by ips_tpu, bridged into the
-port with weights.load_jax, and both Predictors run at
+port with weights.load_jax (or read from its committed flat copy,
+ips_tpu_torch/results/trained/mnist150_e150.npz, through the
+Predictor's checkpoint argument), and both Predictors run at
 config/mnist_config.yml as shipped (N=900 patches of 50x50, M=I=100,
 bf16 compute and input, and again in fp32) on two generated test
 images.
@@ -35,6 +37,8 @@ from ips_tpu_torch.infer import Predictor
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(ROOT, "config", "mnist_config.yml")
 CHECKPOINT = os.path.join(ROOT, "ckpt_mnist150", "150")
+NPZ = os.path.join(ROOT, "ips_tpu_torch", "results", "trained",
+                   "mnist150_e150.npz")
 PROB_ATOL = 2.0 ** -7
 
 
@@ -62,17 +66,25 @@ def trained(tmp_path_factory):
 
 
 # as shipped (bf16), and in fp32 compute, where the two differ only by
-# the order of fp32 sums: tests/test_torch_infer.py's fp32 tolerance
-@pytest.mark.parametrize("dtype,atol", [("bfloat16", PROB_ATOL),
-                                        ("float32", 1e-5)])
-def test_trained_weights_match_jax(trained, dtype, atol):
+# the order of fp32 sums: tests/test_torch_infer.py's fp32 tolerance; the
+# port's weights bridged from the restored trees (load_jax) or read from
+# the committed flat copy of the same checkpoint (npz,
+# ips_tpu_torch/results/trained/mnist150_e150.npz, the card's only copy)
+@pytest.mark.parametrize("source,dtype,atol", [
+    pytest.param("load_jax", "bfloat16", PROB_ATOL, id="bfloat16-0.0078125"),
+    pytest.param("load_jax", "float32", 1e-5, id="float32-1e-05"),
+    pytest.param("npz", "bfloat16", PROB_ATOL, id="npz-bfloat16-0.0078125"),
+    pytest.param("npz", "float32", 1e-5, id="npz-float32-1e-05")])
+def test_trained_weights_match_jax(trained, source, dtype, atol):
     conf, trainer, patches, labels, over = trained
     assert patches.shape == (2, conf.N, 50, 50, 1)
     over = over + [f"compute_dtype={dtype}", f"input_dtype={dtype}"]
     jp = JPredictor(j_load_config(CONFIG, over), trainer=trainer)
-    tp = Predictor(t_load_config(CONFIG, over), device="cpu")
-    weights.load_jax(tp.trainer.model, trainer.state.params,
-                     trainer.state.batch_stats)
+    tp = Predictor(t_load_config(CONFIG, over), device="cpu",
+                   checkpoint=NPZ if source == "npz" else None)
+    if source == "load_jax":
+        weights.load_jax(tp.trainer.model, trainer.state.params,
+                         trainer.state.batch_stats)
     a, b = jp.predict(patches), tp.predict(patches)
     np.testing.assert_array_equal(np.sort(b["selected_idx"], 1),
                                   np.sort(a["selected_idx"], 1))
