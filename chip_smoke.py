@@ -69,7 +69,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                lines, one slide's selection against the plain scorer and
                its pre-encoded selection against the per-chunk one, what
                ``'auto'`` resolves to on the assembled step (pre-encode),
-               epochs with each schedule in turns, ms per step, peak
+               an epoch with each schedule, ms per step, peak
                memory and a profiler breakdown of one epoch with the
                device's idle share. The card has no h5py, so
                the slides stay in memory (``CamelyonFeatures(slides=)``)
@@ -121,10 +121,12 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                epoch 100 (bounds (i)-(iii) of
                ``scripts/trained_eval.BOUNDS``); 8 ``score_logits``
                launches per eval batch, request, selection and step;
- 13. parallel_camelyon — streaming selection under a mesh and B_seq < B
-               over data ranks at the full width of both camelyon configs,
-               two ranks sharing cuda:0 over gloo, each making phase
-               camelyon_e2e's and phase camelyon's corpora from the seed:
+ 13. parallel_camelyon — (runs after camelyon) streaming selection
+               under a mesh and B_seq < B over data ranks at the full
+               width of both camelyon configs, two ranks sharing cuda:0
+               over gloo, each making phase camelyon_e2e's corpus and the
+               first slides of phase camelyon's from the seed (one process
+               takes phase camelyon's own):
                (a) the streamed selection of a 2304-tile train slide at
                1x2, every stage of each rank holding 128 of each chunk's
                256 tiles, its kept indices against one process's (or
@@ -137,7 +139,9 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                order, every kept set, the eval predictions, state bitwise
                equal on both ranks, rank 0 alone writing metrics; (c)
                camelyon features through ``main.run`` at 2x1 for one
-               epoch (one K = 4 group of B = 16 steps, 8 slots a rank):
+               epoch on the 64 train and first 4 test slides of phase
+               camelyon's corpus (one K = 4 group of four B = 16 steps,
+               one K-stacked dispatch on rank 0, 8 slots a rank):
                per-step losses against one process's on the same batches,
                state bitwise equal, the test set's buckets of fewer than
                B slides evaluating nothing (``drop_last``); ms a step and
@@ -147,7 +151,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                patches of 100x100x3, M = 10, I = 32, B = 16, ResNet-18
                with all 4 blocks, D = 512, bf16, fp32 host normalization,
                8 loader threads) on a synthetic STS corpus made in memory
-               from the seed (46 images a set): 2 epochs (the dense eager
+               from the seed (30 images a set): 2 epochs (the dense eager
                schedule, padded tail batches), 6 ``score_logits``
                launches per step and per eval batch, metrics lines, the
                saved checkpoint restored bitwise, one augmented batch's
@@ -185,7 +189,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                dispatch against the direct ctypes call;
  18. preprocess — the slide-preprocessing pipeline and pretrained weights
                (``ips_tpu_torch.data.camelyon`` synth, otsu, foreground,
-               extract_feat; ``models.pretrained``): 4 train and 2 test
+               extract_feat; ``models.pretrained``): 2 train and 2 test
                slides of 5600x5600 made in memory from the seed; otsu
                thresholds and foreground tiles (256 px, fg 0.01) in worker
                processes while the next slide is made; a seeded
@@ -206,6 +210,20 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                path's encoder layer1 timed at the same shape; then the
                layer1 conv probe (``ips_tpu_torch.scripts.probe_conv``)
                at its real shape, its kernel launches counted.
+ 20. demo    — (runs after cli) the README's demo, the counterpart of
+               examples/minimal_ips.py and ips_example.ipynb
+               (``ips_tpu_torch/examples/``): the script's ``main`` as
+               users run it (60 steps, on the card by default), its
+               lines and 4 * 61 ``score_logits`` launches at
+               (8, 10, 128)x(128, 4) fp32; the notebook's code cells in
+               this process under cuDNN's deterministic algorithms, its
+               launches, and its losses and kept indices bitwise a run
+               of the script under the same flag; the first
+               step's selection against the plain scorer's; the
+               deterministic variant's 3 steps on the card against the
+               CPU; draws 0..7 trained as shipped, the count whose last
+               10 steps' mean loss is under a stated bar beside the JAX
+               package's count on the CPU, and Fisher's p.
 
 Any failed phase raises, so the script exits non-zero. The line before
 the last is a JSON object with one entry per kernel; the last line is
@@ -350,6 +368,9 @@ SHIPPED_WINDOW_IMAGES = 16 * 16 + 8
 # reference's N = 10k bucket, the test set crosses buckets 5000..15000
 CAMELYON_TRAIN, CAMELYON_TEST = (64, (5001, 10001)), (16, (2000, 15001))
 CAMELYON_EPOCHS = 2
+# the assembled step's selection schedules timed after the run, an epoch
+# each
+CAMELYON_SCHEDULES = (False, "auto")
 # phase camelyon_e2e: 8 train slides of 1281..2304 tiles (bucket 2304: 8
 # chunks after the first M, two groups of G = 4), one optimizer step of
 # B = 8 an epoch; 4 test slides in buckets 256, 768, 1280 and 2304 (the
@@ -365,13 +386,12 @@ E2E_GRAD_ENCODE_CHUNK = 32
 E2E_PEAK_TOL = 64 * 2**20
 
 # phase traffic: a synthetic STS corpus in memory at the size of the JAX
-# package's own traffic learning run, 1200 x 1600 (RESULTS.md), 46 images
+# package's own traffic learning run, 1200 x 1600 (RESULTS.md), 30 images
 # a set (cut from STS's ~750 train images): after the visibility filter
-# 43 a split, 2 full batches of B = 16 and a padded tail of 11 (48 a set
-# would leave 48 test images, no padded batch); 2 epochs
-TRAFFIC_IMAGES, TRAFFIC_HW, TRAFFIC_EPOCHS = 46, (1200, 1600), 2
+# 29 a split, one full batch of B = 16 and a padded tail of 13; 2 epochs
+TRAFFIC_IMAGES, TRAFFIC_HW, TRAFFIC_EPOCHS = 30, (1200, 1600), 2
 # host time of one train item, averaged over this many items
-TRAFFIC_HOST_ITEMS = 4
+TRAFFIC_HOST_ITEMS = 2
 
 # phase hostops: the MNIST dense data path's host functions at the shipped
 # width, 1500x1500 images cut into 900 patches of 50x50, B = 16, and a
@@ -387,10 +407,10 @@ EXPORT_REQUESTS = 4
 
 # phase preprocess: the CAMELYON16 workflow (synth -> otsu -> foreground ->
 # extract_feat -> the feature trainer) on slides of the JAX package's own
-# camelyon_e2e learning run, 5600 x 5600 (~94 MB of uint8 each): 2 normal
-# and 2 tumour train slides, 2 test slides (one tumour); tiles of 256 at
+# camelyon_e2e learning run, 5600 x 5600 (~94 MB of uint8 each): a normal
+# and a tumour train slide, 2 test slides (one tumour); tiles of 256 at
 # level 0, center-cropped to 224, batches of 64, ResNet-50 with 4 stages
-PRE_COUNTS, PRE_HW = (2, 2, 2), 5600
+PRE_COUNTS, PRE_HW = (1, 1, 2), 5600
 PRE_TILE, PRE_FG, PRE_BATCH = 256, 0.01, 64
 PRE_WORKERS = 4
 # card (cuDNN) against CPU features of the same bf16 encoder: both round
@@ -411,6 +431,24 @@ SCORES_RTOL, SCORES_ATOL = 1e-4, 1e-6
 # move by one bf16 ulp: at most 2^-7 |y|, 1.6e-2 for |y| < 4.
 BLOCK_RTOL, BLOCK_ATOL = 1.6e-2, 1.6e-2
 KERNELS = ("score_logits", "conv_block")
+
+# phase demo: the README's demo (ips_tpu_torch/examples/minimal_ips.py and
+# its notebook) at its own size: 64 images of N = 25 patches of 32x32,
+# ResNet-18/2, D = 128, B = 8, M = I = 5, fp32, the script's 60 steps.
+# Every select scores (N - M) / I = 4 chunks, so a run launches
+# score_logits 4 * (60 + 1) times. The learning count trains draws 0..7
+# as shipped (draw 0 is the script's own run); a draw learned when its
+# last 10 steps' mean loss is under DEMO_BAR (stated before the card
+# ran); JAX's count at the same draws comes from
+# ips_tpu_torch/results/demo/jax_cpu.json (the CPU; its run.sh).
+DEMO_STEPS, DEMO_DRAWS, DEMO_BAR = 60, 8, 0.35
+# Card against CPU: the deterministic variant (shuffle off, dropouts 0,
+# the seed's weights on both) for 3 steps, relative loss gap. On the CPU
+# the two packages part by 0, 5.9e-7 and 1.8e-6 at these steps (fp32
+# sums in another order, then AdamW's first moves, about lr * sign(g), on
+# gradients within rounding of 0); cuDNN's fp32 convolutions sum in
+# other orders again. The bound is 50 times that measured gap.
+DEMO_CPU_STEPS, DEMO_CPU_RTOL = 3, 1e-4
 
 # phase parallel: worlds of ranks sharing cuda:0 (gloo), each with this
 # deadline in seconds; the meshes (data, patch) of its checked groups;
@@ -440,6 +478,11 @@ PARALLEL_CLI_TOL = 1e-2
 # gradients within rounding of 0 (phase parallel: 3.3e-3 over a group).
 PC_TIMEOUT = 480
 PC_SLIDE = 1
+# (c) trains on all 64 train slides of phase camelyon's corpus, one K = 4
+# group of four B = 16 steps, and on its first 4 test slides, which lie
+# in buckets of fewer than B slides. The ranks draw them; one process
+# takes phase camelyon's
+PC_CAMELYON_SLIDES = (64, 4)
 PC_E2E_LOSS_TOL = 1e-3
 PC_PRED_TOL = 1e-2
 
@@ -567,8 +610,10 @@ def phase_kernels(torch, np, device):
     from ips_tpu_torch.ops import score_kernel as sk
     from ips_tpu_torch.scripts.kernel_times import LOGITS_CASES, logits_bound
     rng = np.random.default_rng(SEED)
-    # the timed shapes, the MNIST selection shape first, and a ragged L
-    cases = LOGITS_CASES + (("ragged", 4, 1037, 128, 32, "float32"),)
+    # the timed shapes, the MNIST selection shape first, a ragged L, and
+    # the demo's final select (10 rows: one partial tile of 16)
+    cases = LOGITS_CASES + (("ragged", 4, 1037, 128, 32, "float32"),
+                            ("demo select", 1, 10, 128, 4, "float32"))
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     errs = {}
     for name, B, L, D, TH, dt in cases:
@@ -1128,6 +1173,154 @@ def phase_cli(torch, np, pred, patches):
             "the Predictor")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _demo_checked(np, conf, res, steps, what):
+    """The demo's losses finite, one a step, and M distinct kept indices
+    of the N patches; returns the last 10 steps' mean loss."""
+    losses, kept = np.asarray(res["losses"]), np.asarray(res["kept"])
+    if (losses.shape != (steps,) or not np.isfinite(losses).all()
+            or kept.shape != (conf.M,) or len(set(kept.tolist())) != conf.M
+            or kept.min() < 0 or kept.max() >= conf.N):
+        raise AssertionError(f"{what}: losses {losses}, kept {kept}")
+    return float(losses[-10:].mean())
+
+
+def phase_demo(torch, np, device, card):
+    """The README's demo (ips_tpu_torch/examples/) on the card: the script
+    as users run it, its notebook, the kernel against the plain scorer,
+    the card against the CPU, and the learning count beside JAX's.
+    Returns score_logits' launches in the script's run."""
+    import contextlib
+    import io
+    from ips_tpu_torch.examples import minimal_ips as demo
+    from ips_tpu_torch.ops import score_kernel as sk
+    from ips_tpu_torch.scripts.init_study import fisher_p
+    from ips_tpu_torch.train.loop import fold_seed
+    conf = demo.demo_config()
+    want = math.ceil((conf.N - conf.M) / conf.I) * (DEMO_STEPS + 1)
+
+    def quiet(line):
+        pass
+
+    # (a) the script as users run it: `python -m
+    # ips_tpu_torch.examples.minimal_ips`, on the card by default
+    buf = io.StringIO()
+    sk.logits.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        script = demo.main(["--steps", str(DEMO_STEPS)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = sk.logits.launches
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(f"    | {line}")
+    mean0 = _demo_checked(np, conf, script, DEMO_STEPS, "the script")
+    shown = [s for s in range(DEMO_STEPS)
+             if s % 10 == 0 or s == DEMO_STEPS - 1]
+    if (len(lines) != 2 + len(shown)
+            or not lines[0].startswith("devices: [cuda")
+            or not all(s.startswith("step ") for s in lines[1:-1])
+            or not lines[-1].startswith(
+                "selected patch indices for sample 0: [")):
+        raise AssertionError(f"the script printed {lines}")
+    if launches != want:
+        raise AssertionError(f"the script launched score_logits "
+                             f"{launches} times, expected {want}")
+    log(f"  script: {DEMO_STEPS} steps and the final select in "
+        f"{wall:.2f} s, {launches} score_logits launches (4 a select at "
+        f"(8, 10, 128)x(128, 4) and (1, 10, 128)x(128, 4) fp32), last-10 "
+        f"mean loss {mean0:.4f}; card {card}")
+
+    # (b) the notebook's code cells in this process. cuDNN's
+    # nondeterministic backward algorithms part two runs of one program
+    # from the first backward on; with them pinned to the deterministic
+    # ones the notebook must give the script's run bitwise
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "ips_tpu_torch", "examples", "ips_example.ipynb")
+    with open(path) as f:
+        cells = ["".join(c["source"]) for c in json.load(f)["cells"]
+                 if c["cell_type"] == "code"]
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        det_script = demo.run(DEMO_STEPS, 0, device, out=quiet)
+        ns = {}
+        sk.logits.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            for src in cells:
+                exec(compile(src, path, "exec"), ns)
+        nb_wall = time.perf_counter() - t0
+        nb_launches = sk.logits.launches
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    nb = {"losses": ns["losses"], "kept": ns["mem_idx"].cpu().numpy()[0]}
+    _demo_checked(np, conf, nb, DEMO_STEPS, "the notebook")
+    same = (nb["losses"] == det_script["losses"]
+            and np.array_equal(nb["kept"], det_script["kept"]))
+    log(f"  notebook under cudnn.deterministic: {len(cells)} code cells in "
+        f"{nb_wall:.2f} s, {nb_launches} launches; its {DEMO_STEPS} "
+        f"losses and kept indices are {'bitwise' if same else 'NOT'} the "
+        f"script's run's under the same flag")
+    if nb_launches != want:
+        raise AssertionError(f"the notebook launched score_logits "
+                             f"{nb_launches} times, expected {want}")
+    if not same:
+        raise AssertionError("the notebook is not the script's program")
+
+    # (c) the first step's selection, the kernel against the plain scorer
+    rng = np.random.default_rng(0)
+    X, _ = demo.make_task(rng, demo.N_SAMPLES, conf.n_class, conf.N,
+                          demo.PATCH)
+    tr = demo.IPSTrainer(conf, device=device)
+    x = torch.from_numpy(X[rng.integers(0, len(X), conf.B)]).to(device)
+    mask = torch.ones((conf.B, conf.N), dtype=torch.bool, device=device)
+    seed = fold_seed(0, 0)
+    idx = tr.select(x, mask, tr.new_generator(seed))[2].cpu().numpy()
+    log(f"  first step's batch {tuple(x.shape)}: kernel selection of "
+        f"{idx.shape[1]}")
+    check_plain_selection(torch, np, tr.model, conf, tr.pos_table, x, mask,
+                          idx, seed=seed)
+    del tr, x, mask
+
+    # (d) the deterministic variant, the card against the CPU
+    det = dict(shuffle=False, dropout=0.0, attn_dropout=0.0)
+    runs = {d: demo.run(DEMO_CPU_STEPS, 0, d, overrides=det, out=quiet)
+            ["losses"] for d in (device, "cpu")}
+    got, ref = np.asarray(runs[device]), np.asarray(runs["cpu"])
+    rel = float((np.abs(got - ref) / np.abs(ref)).max())
+    log(f"  card against CPU (shuffle off, dropouts 0, the seed's weights, "
+        f"{DEMO_CPU_STEPS} steps): losses {got.tolist()} against "
+        f"{ref.tolist()}, relative gap {rel:.3e} (bound {DEMO_CPU_RTOL})")
+    if rel > DEMO_CPU_RTOL:
+        raise AssertionError("the card's steps are off the CPU's")
+
+    # (e) the learning count over draws 0..7 as shipped (draw 0: the
+    # script's run above), beside the JAX package's on the CPU
+    means = {0: mean0}
+    t0 = time.perf_counter()
+    for s in range(1, DEMO_DRAWS):
+        means[s] = _demo_checked(np, conf, demo.run(
+            DEMO_STEPS, s, device, out=quiet), DEMO_STEPS, f"draw {s}")
+    draws_s = time.perf_counter() - t0
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "ips_tpu_torch", "results", "demo",
+                           "jax_cpu.json")) as f:
+        jax_means = {int(s): r["last10_mean"]
+                     for s, r in json.load(f)["seeds"].items()}
+    port_n = sum(means[s] < DEMO_BAR for s in means)
+    jax_n = sum(jax_means[s] < DEMO_BAR for s in means)
+    p = fisher_p(port_n, len(means), jax_n, len(means))
+    log(f"  learning count (last-10 mean loss < {DEMO_BAR}), draws "
+        f"0-{DEMO_DRAWS - 1}: card {port_n} of {len(means)} "
+        f"{[round(means[s], 4) for s in sorted(means)]}; JAX on the CPU "
+        f"(ips_tpu_torch/results/demo/jax_cpu.json) {jax_n} of "
+        f"{len(means)} {[round(jax_means[s], 4) for s in sorted(means)]}; "
+        f"Fisher's p {p:.4g}{' (below 0.05: a finding)' if p < 0.05 else ''}"
+        f"; draws 1-{DEMO_DRAWS - 1} in {draws_s:.2f} s; card {card}")
+    return launches
 
 
 def metrics_rows(path):
@@ -2036,11 +2229,10 @@ def run_driver(torch, conf, dataset, datasets):
 
 def phase_camelyon(torch, np, device, card):
     """The camelyon feature-mode path through the driver at full width;
-    returns score_logits' launches in its 2-epoch run."""
+    returns score_logits' launches in its 2-epoch run and the corpus's
+    slides (``camelyon_corpus``)."""
     from ips_tpu_torch import main as driver
     from ips_tpu_torch.config import config_from_dict
-    from ips_tpu_torch.data.camelyon.dataset import (CamelyonFeatures,
-                                                     synth_slides)
     from ips_tpu_torch.infer import Predictor
     from ips_tpu_torch.ops import score_kernel as sk
     from ips_tpu_torch.train.loop import train_one_epoch
@@ -2054,12 +2246,7 @@ def phase_camelyon(torch, np, device, card):
         # the card has no h5py: the slides stay in memory, made by the
         # generator make_synth_features writes out
         t0 = time.perf_counter()
-        train_ds, test_ds = (
-            CamelyonFeatures(conf, train, slides=dict(synth_slides(
-                n, conf.n_chan_in, n_range, seed=seed)))
-            for train, (n, n_range), seed in (
-                (True, CAMELYON_TRAIN, SEED), (False, CAMELYON_TEST,
-                                              SEED + 1)))
+        (train_ds, test_ds), slides = camelyon_corpus(conf)
         train_b = [train_ds.bucket_of(i) for i in range(len(train_ds))]
         test_b = [test_ds.bucket_of(i) for i in range(len(test_ds))]
         # the M >= N shortcut, one chunk and two chunks beyond the first M
@@ -2163,7 +2350,7 @@ def phase_camelyon(torch, np, device, card):
         log(f"  preencode_select='auto' on the assembled step's stacked "
             f"table {table} fp32 resolves to "
             f"{trainer._resolve_preencode(table, torch.float32)}")
-        for pe in (False, "auto", "auto", False):
+        for pe in CAMELYON_SCHEDULES:
             trainer.conf = conf.replace(preencode_select=pe)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2182,7 +2369,7 @@ def phase_camelyon(torch, np, device, card):
             log(f"  camelyon step: device busy {busy / steps:.2f} ms of "
                 f"{epoch_s[1] / steps * 1e3:.2f} ms (idle share "
                 f"{1 - busy / (epoch_s[1] * 1e3):.3f}); card {card}")
-        return launches
+        return launches, slides
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2408,17 +2595,20 @@ def slot_loaders(conf, train, test):
 
 class StepRecorder:
     """Every ``MetricsLogger.update`` (train steps, then eval batches) and
-    every streamed selection's kept indices, in order, while active."""
+    every streamed selection's kept indices, in order, and the count of
+    K-stacked train dispatches (``fused_assembled_multi_step``), while
+    active."""
 
     def __init__(self):
-        self.updates, self.kept = [], []
+        self.updates, self.kept, self.grouped = [], [], 0
 
     def __enter__(self):
         import numpy as np
         from ips_tpu_torch.train.metrics import MetricsLogger
         from ips_tpu_torch.train.steps import IPSTrainer
-        self._saved = MetricsLogger.update, IPSTrainer.select_streaming
-        update, select = self._saved
+        self._saved = (MetricsLogger.update, IPSTrainer.select_streaming,
+                       IPSTrainer.fused_assembled_multi_step)
+        update, select, multi = self._saved
         rec = self
 
         def recorded_update(logger, losses, preds, labels, weights=None):
@@ -2433,27 +2623,41 @@ class StepRecorder:
             rec.kept.append(out[2].cpu())
             return out
 
+        def recorded_multi(trainer, *a, **kw):
+            rec.grouped += 1
+            return multi(trainer, *a, **kw)
+
         MetricsLogger.update = recorded_update
         IPSTrainer.select_streaming = recorded_select
+        IPSTrainer.fused_assembled_multi_step = recorded_multi
         return self
 
     def __exit__(self, *exc):
         from ips_tpu_torch.train.metrics import MetricsLogger
         from ips_tpu_torch.train.steps import IPSTrainer
-        MetricsLogger.update, IPSTrainer.select_streaming = self._saved
+        (MetricsLogger.update, IPSTrainer.select_streaming,
+         IPSTrainer.fused_assembled_multi_step) = self._saved
         return False
 
 
-def camelyon_corpus(conf):
+def camelyon_corpus(conf, counts=None, slides=None):
     """Phase camelyon's corpus, made from the seed: the train and test
-    ``CamelyonFeatures`` in memory."""
+    ``CamelyonFeatures`` in memory, and their slides (two dicts).
+    ``counts`` (train, test) takes only the first slides of each set (the
+    same draws: ``synth_slides`` yields one slide at a time); ``slides``
+    takes them from the whole corpus made before instead of drawing."""
+    from itertools import islice
     from ips_tpu_torch.data.camelyon.dataset import (CamelyonFeatures,
                                                      synth_slides)
-    return tuple(
-        CamelyonFeatures(conf, train, slides=dict(synth_slides(
-            n, conf.n_chan_in, n_range, seed=seed)))
-        for train, (n, n_range), seed in (
-            (True, CAMELYON_TRAIN, SEED), (False, CAMELYON_TEST, SEED + 1)))
+    sets, made = [], []
+    for i, ((n, n_range), seed) in enumerate((
+            (CAMELYON_TRAIN, SEED), (CAMELYON_TEST, SEED + 1))):
+        k = n if counts is None else counts[i]
+        src = (synth_slides(n, conf.n_chan_in, n_range, seed=seed)
+               if slides is None else slides[i].items())
+        made.append(dict(islice(src, k)))
+        sets.append(CamelyonFeatures(conf, i == 0, slides=made[-1]))
+    return tuple(sets), tuple(made)
 
 
 def pc_e2e_conf(**over):
@@ -2545,10 +2749,11 @@ def parallel_camelyon_rank(argv):
     del trainer, train_ds, item
     torch.cuda.empty_cache()
 
-    # (c) camelyon features through the driver at 2x1, one K = 4 group
+    # (c) camelyon features through the driver at 2x1, one K = 4 group of
+    # four steps; the test set's first slides
     conf = pc_camelyon_conf(mesh_data=2, metrics_path=os.path.join(
         tmp, "camelyon.jsonl"), **mh)
-    datasets = camelyon_corpus(conf)
+    datasets, _ = camelyon_corpus(conf, PC_CAMELYON_SLIDES)
     torch.cuda.reset_peak_memory_stats()
     sk.logits.launches = 0
     with StepRecorder() as rec:
@@ -2556,7 +2761,7 @@ def parallel_camelyon_rank(argv):
     torch.cuda.synchronize()
     out["launches"]["c"] = sk.logits.launches
     out["c"] = {"updates": rec.updates, "state": _state(torch, trainer),
-                "step": trainer.step,
+                "step": trainer.step, "grouped": rec.grouped,
                 "peak": torch.cuda.max_memory_allocated()}
     torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
     dist.destroy_process_group()
@@ -2569,11 +2774,12 @@ def _model_from(torch, conf, state, device):
     return m
 
 
-def phase_parallel_camelyon(torch, np, device, card):
+def phase_parallel_camelyon(torch, np, device, card, slides=None):
     """Streaming under a mesh and B_seq < B over data ranks at the full
     width of both camelyon configs, two ranks sharing cuda:0 (gloo),
-    against one process on the same slides and batches. Returns rank 0's
-    score_logits launches in (a), (b) and (c)."""
+    against one process on the same slides and batches; (c)'s one process
+    takes its slides from phase camelyon's ``slides`` where given. Returns
+    rank 0's score_logits launches in (a), (b) and (c)."""
     from ips_tpu_torch import main as driver
     from ips_tpu_torch.data.loader import DataLoader
     from ips_tpu_torch.parallel.launch import run_world
@@ -2771,7 +2977,8 @@ def phase_parallel_camelyon(torch, np, device, card):
 
         # (c) camelyon features: one process on the same K = 4 group
         conf = pc_camelyon_conf()
-        train_c, test_c = camelyon_corpus(conf)
+        (train_c, test_c), _ = camelyon_corpus(conf, PC_CAMELYON_SLIDES,
+                                               slides)
         loader, _ = slot_loaders(conf, train_c, test_c)
         single = IPSTrainer(conf)
         with StepRecorder() as rec:
@@ -2808,6 +3015,12 @@ def phase_parallel_camelyon(torch, np, device, card):
             f"{ranks[1]['c']['peak'] / 2**20:.1f} MiB; card {card}")
         if cdiff[0] > PARALLEL_STEP0_TOL or cdiff.max() > PARALLEL_LOSS_TOL:
             raise AssertionError("(c) the ranks' losses are off")
+        K = conf.steps_per_dispatch
+        log(f"  (c) rank 0's K-stacked train dispatches: {r0['grouped']} "
+            f"for {steps} steps at K = {K}")
+        if steps < K or r0["grouped"] != steps // K:
+            raise AssertionError("(c) rank 0 did not run the K-stacked "
+                                 "step")
         launches = ranks[0]["launches"]
         want_l = {"a": per, "b": 2 * (len(counts) // 2) * per,
                   "c": steps * (conf.B // 2) * n_chunks(
@@ -3746,6 +3959,8 @@ def _phases(torch, np, device, t_start, shipped_tmp, shipped_data,
         train_launches = phase_train(torch, np, device, card)
     with Phase("cli"):
         phase_cli(torch, np, pred, patches)
+    with Phase("demo"):
+        demo_launches = phase_demo(torch, np, device, card)
     store = tempfile.mkdtemp(prefix="ips_tpu_torch_driver_")
     try:
         with Phase("driver"):
@@ -3757,7 +3972,12 @@ def _phases(torch, np, device, t_start, shipped_tmp, shipped_data,
     finally:
         shutil.rmtree(store, ignore_errors=True)
     with Phase("camelyon"):
-        camelyon_launches = phase_camelyon(torch, np, device, card)
+        camelyon_launches, slides = phase_camelyon(torch, np, device,
+                                                   card)
+    with Phase("parallel_camelyon"):
+        pc_launches = phase_parallel_camelyon(torch, np, device, card,
+                                              slides)
+    del slides
     with Phase("camelyon_e2e"):
         e2e_launches = phase_camelyon_e2e(torch, np, device, card)
     with Phase("mnist_shipped"):
@@ -3766,8 +3986,6 @@ def _phases(torch, np, device, t_start, shipped_tmp, shipped_data,
     with Phase("trained"):
         trained_launches = phase_trained(torch, np, device, card,
                                          shipped_data)
-    with Phase("parallel_camelyon"):
-        pc_launches = phase_parallel_camelyon(torch, np, device, card)
     with Phase("traffic"):
         traffic_launches = phase_traffic(torch, np, device, card)
     with Phase("hostops"):
@@ -3788,7 +4006,8 @@ def _phases(torch, np, device, t_start, shipped_tmp, shipped_data,
                                  "parallel_camelyon": pc_launches,
                                  "traffic": traffic_launches,
                                  "int8": int8_launches,
-                                 "export": export_launches}
+                                 "export": export_launches,
+                                 "demo": demo_launches}
     entry["launches"] = sum(entry["launches_by_path"].values())
     with Phase("preprocess"):
         phase_preprocess(torch, np, device, card)

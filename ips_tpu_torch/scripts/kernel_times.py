@@ -38,14 +38,18 @@ import torch
 # camelyon_e2e one (one slide, L = M+I = 512 streamed tiles, T*H = 8), each
 # in fp32 as its path runs it (the scorer takes fp32 embeddings) and bf16;
 # the traffic one (B = 16, L = M+I = 42, D = 512, T*H = 1*8) in fp32, the
-# type its path passes
+# type its path passes; the README demo's step (B = 8, L = M+I = 10,
+# D = 128, T*H = 1*4) in fp32, its compute type: T*H = 4 takes the fp32
+# kernel's one-column-group instantiation (launch_f32<1>), which no other
+# path launches
 LOGITS_CASES = (("mnist", 16, 200, 128, 32, "float32"),
                 ("mnist", 16, 200, 128, 32, "bfloat16"),
                 ("camelyon", 1, 10000, 512, 8, "float32"),
                 ("camelyon", 1, 10000, 512, 8, "bfloat16"),
                 ("camelyon_e2e", 1, 512, 512, 8, "float32"),
                 ("camelyon_e2e", 1, 512, 512, 8, "bfloat16"),
-                ("traffic", 16, 42, 512, 8, "float32"))
+                ("traffic", 16, 42, 512, 8, "float32"),
+                ("demo", 8, 10, 128, 4, "float32"))
 # (name, n, s, c, paired): layer1's chunk of 1600 patches of 13x13x64, the
 # TPU kernel's pair-packed layout (block-diagonal weights), and
 # layer2_block1's chunk (where c=128 would run on the main path)

@@ -28,7 +28,9 @@ digest checked against the JAX package's):
   against the eval's image by image (held equal for ``SERVED``). With
   ``--against`` (``tests/torch_jax_checkpoints.py calibrate``'s file),
   each image's predictions and kept set against the JAX package's on
-  the CPU (bound (iv)).
+  the CPU (bound (iv)); a kept set may part at a near tie on this
+  device's side, or at one on JAX's where it equals JAX's fp32
+  selection (``--jax-ties``, ``calibration/near_tie_jax.json``).
 * ``int8`` (b): from ``mnist40_e44`` under the probe's config, the
   per-image Jaccard of int8 against bf16 kept sets (one generator seed
   for both, the ragged tail skipped as the probe skips it), its mean,
@@ -57,7 +59,7 @@ import os
 import sys
 import tempfile
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -462,13 +464,40 @@ def calibrated_flips(conf, jax_file: dict, port_cpu: dict) -> Dict[str, int]:
     return {k: max(a[k], b[k]) for k in a}
 
 
+def is_near_tie(rep: Optional[dict]) -> bool:
+    """A first differing step whose gap at the M-th place lies within
+    twice the two scorings' largest difference."""
+    return rep is not None and rep["gap_at_M"] <= 2 * rep["max_score_diff"]
+
+
+def kept_misses(ties: Dict[int, dict], jax_ties: Dict[int, dict],
+                kept: Sequence[list]) -> List[str]:
+    """Bound (iv)'s kept-set half: an image whose kept set (``kept[i]``,
+    sorted) parts from JAX's must part at a near tie on this device's
+    side (``ties[i]["near_tie"]``) or on JAX's, and then equal JAX's
+    fp32 selection (``jax_ties[i]``: the JAX package's bf16 and fp32
+    selections of the image replayed on the CPU, ``near_tie`` at their
+    first parting and ``fp32_kept``, by
+    ``tests/torch_jax_checkpoints.py near-tie-jax``)."""
+    def jax_side(i):
+        t = jax_ties.get(i)
+        return is_near_tie(t) and t["fp32_kept"] == kept[i]
+    return [f"(iv) image {i}'s kept set parts from JAX's away from a "
+            f"near tie on the card's side, and from JAX's fp32 selection "
+            f"or away from a near tie on JAX's: {t}"
+            for i, t in ties.items()
+            if not t["near_tie"] and not jax_side(i)]
+
+
 def against_jax(smoke, line: dict, jax_file: dict, port_cpu: dict, conf,
-                trainer, test) -> dict:
+                trainer, test, jax_ties: Dict[int, dict]) -> dict:
     """Bound (iv) on the calibration images: the Predictor's kept sets
-    against the JAX Predictor's on the CPU (equal, or parted where this
-    device's own selection parts between its compute dtype and fp32 at a
-    near tie) and the eval's prediction flips against JAX's eval, per
-    task, within the calibrated count (:func:`calibrated_flips`)."""
+    against the JAX Predictor's on the CPU (equal, or parted at a near
+    tie: where this device's own selection parts between its compute
+    dtype and fp32, or where JAX's does, ``jax_ties``, and the kept set
+    is JAX's fp32 one; :func:`kept_misses`) and the eval's prediction flips against JAX's
+    eval, per task, within the calibrated count
+    (:func:`calibrated_flips`)."""
     cal = calibrated_flips(conf, jax_file, port_cpu)
     served = line["predictor"]
     n = len(served["kept"])
@@ -482,17 +511,24 @@ def against_jax(smoke, line: dict, jax_file: dict, port_cpu: dict, conf,
                             item["img_hw"])
         with torch.inference_mode():
             rep = near_tie(smoke, trainer, twin, x)
-        ok = rep is not None and rep["gap_at_M"] <= 2 * rep["max_score_diff"]
         ties[i] = {"swapped": len(set(want[i]) - set(served["kept"][i])),
-                   "report": rep, "near_tie": ok}
+                   "report": rep, "near_tie": is_near_tie(rep),
+                   "jax": jax_ties.get(i)}
     got = flips(conf, line["predictions"],
                 jax_file["run"]["predictions"])
-    misses = [f"(iv) image {i}'s kept set parts from JAX's away from a "
-              f"near tie: {t}" for i, t in ties.items() if not t["near_tie"]]
+    misses = kept_misses(ties, jax_ties, served["kept"])
     misses += [f"(iv) {k}: {v} prediction flips against JAX's eval, "
                f"calibrated {cal[k]}" for k, v in got.items() if v > cal[k]]
     return {"images": n, "kept_equal": n - len(differ), "kept_differ": ties,
             "flips": got, "calibrated_flips": cal, "misses": misses}
+
+
+def jax_near_ties(path: str) -> Dict[str, Dict[int, dict]]:
+    """``near-tie-jax``'s file: per file, each image's first parting of
+    the JAX package's bf16 and fp32 selections, by image."""
+    with open(path) as f:
+        return {name: {int(i): t for i, t in res["parted"].items()}
+                for name, res in json.load(f).items()}
 
 
 # -------------------------------------------------------------------- CLI
@@ -525,6 +561,10 @@ def main(argv=None) -> int:
     p.add_argument("--calibration", default="",
                    help="eval --against: the port's CPU lines on the same "
                         "images, which calibrate the prediction flips")
+    p.add_argument("--jax-ties", default=os.path.join(
+                       TRAINED, "calibration", "near_tie_jax.json"),
+                   help="eval --against: where the JAX package's own bf16 "
+                        "and fp32 selections part (near-tie-jax)")
     p.add_argument("--epochs", type=int, default=None,
                    help="resume: epochs to train (default: to n_epoch)")
     p.add_argument("--checkpoint-dir", default="",
@@ -550,12 +590,13 @@ def main(argv=None) -> int:
     misses = []
     if a.mode == "eval":
         sub = First(test, a.images)
-        jax_cal, port_cpu = {}, {}
+        jax_cal, port_cpu, jax_ties = {}, {}, {}
         if a.against:
             with open(a.against) as f:
                 jax_cal = json.load(f)
             with open(a.calibration) as f:
                 port_cpu = {r["file"]: r for r in map(json.loads, f)}
+            jax_ties = jax_near_ties(a.jax_ties)
         for name in a.files.split(","):
             line = eval_file(smoke, name, sub, store, device,
                              predictor=True)
@@ -564,7 +605,7 @@ def main(argv=None) -> int:
                 tr = trainer_from(fconf, name, device)
                 line["against_jax"] = against_jax(
                     smoke, line, jax_cal[name], port_cpu[name], fconf, tr,
-                    sub)
+                    sub, jax_ties.get(name, {}))
                 line["misses"] += line["against_jax"]["misses"]
             misses += line["misses"]
             emit(line, a.out, card)

@@ -33,6 +33,7 @@ CLIS = {
     "ips_tpu_torch.scripts.mnist_learning": ["--no-such-flag"],
     "ips_tpu_torch.scripts.init_study": ["--no-such-flag"],
     "ips_tpu_torch.scripts.trained_eval": ["--no-such-flag"],
+    "ips_tpu_torch.examples.minimal_ips": ["--no-such-flag"],
     "ips_tpu_torch.scripts.kernel_times": None,
     "ips_tpu_torch.scripts.train_parity": None,
 }

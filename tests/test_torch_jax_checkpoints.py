@@ -288,3 +288,72 @@ def test_resume_through_main_run(tmp_path):
     tr2, _, _ = driver.run(conf2, "mnist", "cpu", epochs=1)
     assert tr2.step == 44 * STEPS_PER_EPOCH + 2
     assert CheckpointManager(ckpt2).epochs() == [44, 45]
+
+
+def _card_lines():
+    """The card's ``eval --against`` lines (bound (iv)): per file, each
+    parting image's entry and the card's kept sets, by image."""
+    path = os.path.join(te.TRAINED, "card", "card.jsonl")
+    with open(path) as f:
+        lines = [json.loads(x) for x in f]
+    return {ln["file"]: ({int(i): t for i, t in
+                          ln["against_jax"]["kept_differ"].items()},
+                         ln["predictor"]["kept"])
+            for ln in lines if "against_jax" in ln}
+
+
+def test_bound_iv_reads_both_sides_near_ties():
+    """The card's recorded kept sets against JAX's: 11 of 320 images part
+    where the card's replay sees no near tie; JAX's own bf16 and fp32
+    selections part at a near tie on each of them, and the card keeps
+    JAX's fp32 set there (``calibration/near_tie_jax.json``), so no image
+    misses the bound."""
+    cards = _card_lines()
+    jax_ties = te.jax_near_ties(os.path.join(
+        te.TRAINED, "calibration", "near_tie_jax.json"))
+    alone = {n: te.kept_misses(t, {}, kept) for n, (t, kept) in cards.items()}
+    assert {n: len(m) for n, m in alone.items()} == {
+        "mnist150_e150": 2, "mnist40_e44": 9}
+    for name, (t, kept) in cards.items():
+        assert te.kept_misses(t, jax_ties[name], kept) == []
+        # the JAX side decides only where the card's side did not
+        for i, entry in t.items():
+            if not entry["near_tie"]:
+                assert te.is_near_tie(jax_ties[name][i])
+                assert jax_ties[name][i]["fp32_kept"] == kept[i]
+    # an image JAX's selections do not part on stays a miss
+    one, kept = {7: {"near_tie": False}}, {7: [1, 2]}
+    assert len(te.kept_misses(one, {}, kept)) == 1
+    far = {7: {"step": 0, "gap_at_M": 1e-3, "max_score_diff": 1e-4,
+               "fp32_kept": [1, 2]}}
+    assert len(te.kept_misses(one, far, kept)) == 1
+    # a near tie on JAX's side passes only the card set that is JAX's fp32
+    # selection: one that is neither JAX's bf16 set nor its fp32 set misses
+    tie = {7: {"step": 0, "gap_at_M": 1e-6, "max_score_diff": 1e-4,
+               "fp32_kept": [1, 2]}}
+    assert te.kept_misses(one, tie, kept) == []
+    assert len(te.kept_misses(one, tie, {7: [1, 3]})) == 1
+
+
+def test_first_parting_of_two_replays():
+    """``_first_parting`` matches the two replays' candidates by patch
+    index and reads the run dtype's gap at the M-th place."""
+    M = 2
+    idx = np.array([[0, 1, 2, 3]])
+    run = [{"idx": idx, "scores": np.array([[0.4, 0.3, 0.2, 0.1]]),
+            "kept": np.array([[0, 1]])},
+           {"idx": np.array([[0, 1, 4, 5]]),
+            "scores": np.array([[0.3, 0.30001, 0.2, 0.2]]),
+            "kept": np.array([[1, 0]])}]
+    fp32 = [{"idx": idx, "scores": np.array([[0.4, 0.3, 0.2, 0.1]]),
+             "kept": np.array([[1, 0]])},
+            {"idx": np.array([[1, 0, 5, 4]]),
+             "scores": np.array([[0.3, 0.29, 0.2, 0.31]]),
+             "kept": np.array([[4, 1]])}]
+    rep = jc._first_parting(run, fp32, 0, M)
+    assert rep["step"] == 1
+    assert rep["gap_at_M"] == pytest.approx(0.3 - 0.2)
+    # patch 1: 0.30001 against 0.3; patch 0: 0.3 against 0.29; patch 4:
+    # 0.2 against 0.31, the largest
+    assert rep["max_score_diff"] == pytest.approx(0.11)
+    assert jc._first_parting(run[:1], fp32[:1], 0, M) is None

@@ -10,6 +10,8 @@ it runs from the repository root on the CPU::
         --store DIR --out full_eval_jax.json
     JAX_PLATFORMS=cpu python tests/torch_jax_checkpoints.py kept-fp32 \\
         --store DIR --card card.jsonl --out kept_fp32.json
+    JAX_PLATFORMS=cpu python tests/torch_jax_checkpoints.py near-tie-jax \\
+        --store DIR [--images 160] --card card.jsonl --out near_tie_jax.json
 
 ``write`` restores each orbax step of ``STEPS`` with
 ``ips_tpu.utils.checkpoint.CheckpointManager`` (which restores only a
@@ -37,7 +39,11 @@ overrides: per image, each task's prediction and each kept set.
 ``kept-fp32`` takes the card's lines of ``trained_eval eval --against``
 and, for each image whose kept set parted from JAX's where the card saw
 no near tie (bound (iv)), runs both packages' Predictors on the CPU in
-fp32 and in the run's dtype on those images.
+fp32 and in the run's dtype on those images. ``near-tie-jax`` applies
+bound (iv)'s near-tie test to JAX's own scores: both dtypes' Predictor
+selections replayed chunk by chunk over the first ``--images``, and at
+the first step where the two buffers part, the gap at the M-th place of
+the run dtype's scores against twice their largest difference.
 ``full-eval`` is ``evaluate`` from ``mnist40_e44`` over the whole test
 split under the int8 probe's overrides (``input_dtype=bfloat16``), to
 be held against ``results/int8_trained_probe.json``'s bf16 metrics.
@@ -353,6 +359,143 @@ def kept_in_fp32(store: str, card_path: str) -> dict:
     return out
 
 
+def _replay_jax(trainer, conf, x: np.ndarray) -> list:
+    """The JAX Predictor's selection of ``x`` (no shuffle, no mask), one
+    chunk at a time, through the trainer's own encode and score closures
+    and ``ips_tpu.ops.selection.select_top_m``: per step, the candidates'
+    patch indices, their scores and the kept indices, as numpy."""
+    import jax
+    import jax.numpy as jnp
+
+    from ips_tpu.ops.selection import select_top_m
+    st = trainer.state
+    encode, score = trainer._enc_score_fns(st.params, st.batch_stats)
+    pos = trainer._pos_table_const()
+    M, I = conf.M, conf.I
+    B, N = x.shape[:2]
+    if (N - M) % I:
+        raise ValueError("the replay takes whole chunks only")
+    xs = jnp.asarray(x)
+    if conf.input_dtype == "bfloat16":
+        xs = xs.astype(jnp.bfloat16)
+    enc = jax.jit(encode)
+
+    @jax.jit
+    def step(mem_emb, mem_idx, mem_valid, cand_emb, cand_idx):
+        all_emb = jnp.concatenate([mem_emb, cand_emb], axis=1)
+        all_idx = jnp.concatenate([mem_idx, cand_idx], axis=1)
+        all_valid = jnp.concatenate(
+            [mem_valid, jnp.ones(cand_idx.shape, bool)], axis=1)
+        e = all_emb if pos is None else all_emb + pos[all_idx]
+        seen = []
+
+        def scored(emb, valid):
+            seen.append(score(emb, valid))
+            return seen[-1]
+
+        carry = select_top_m(all_emb, e, all_idx, all_valid, M, scored)
+        return carry, seen[0], all_idx
+
+    ar = jnp.broadcast_to(jnp.arange(N, dtype=jnp.int32), (B, N))
+    mem = (enc(xs[:, :M]), ar[:, :M], jnp.ones((B, M), bool))
+    steps = []
+    for s in range(M, N, I):
+        mem, sc, idx = step(*mem, enc(xs[:, s:s + I]), ar[:, s:s + I])
+        steps.append({"idx": np.asarray(idx),
+                      "scores": np.asarray(sc, np.float32),
+                      "kept": np.asarray(mem[1])})
+    return steps
+
+
+def _first_parting(run: list, fp32: list, row: int, M: int):
+    """Where the two replays' kept sets of ``row`` first differ: the step,
+    the gap at the M-th place of the run dtype's scores, and the largest
+    |run - fp32| score difference among that step's candidates (matched
+    by patch index: the two buffers hold one set in their own orders);
+    None where they never part."""
+    for k, (a, b) in enumerate(zip(run, fp32)):
+        if np.array_equal(np.sort(a["kept"][row]), np.sort(b["kept"][row])):
+            continue
+        ia, ib = a["idx"][row], b["idx"][row]
+        if not np.array_equal(np.sort(ia), np.sort(ib)):
+            raise AssertionError("the replays' candidates differ")
+        sa = a["scores"][row].astype(np.float64)
+        sb = dict(zip(ib.tolist(), b["scores"][row].astype(np.float64)))
+        top = np.sort(sa)[::-1]
+        return {"step": k, "gap_at_M": float(top[M - 1] - top[M]),
+                "max_score_diff": float(max(
+                    abs(v - sb[i]) for i, v in zip(ia.tolist(), sa)))}
+    return None
+
+
+def near_tie_jax(store: str, images: int, card_path: str) -> dict:
+    """``near-tie-jax``: bound (iv)'s near-tie test on JAX's side. For
+    each file of the card's ``--against`` lines, the JAX Predictor's
+    selection of the first ``images`` test images replayed chunk by
+    chunk in the run's dtype and in fp32 (``_replay_jax``); on every
+    image whose two selections part, the first step where they do, the
+    gap at the M-th place of the run dtype's scores and the largest score
+    difference there (``_first_parting``; a near tie: gap <= twice the
+    difference), the fp32 replay's final kept set, and whether the
+    card's own test missed that image. The
+    replays' final kept sets are counted against the Predictor's
+    (``calibration/jax_cpu_160.json``, run dtype) and, fp32, against the
+    card's on the images the card's test missed."""
+    from ips_tpu_torch.data.mnist import MegapixelMNIST
+    from ips_tpu_torch.scripts import trained_eval as te
+    smoke = te.chip_smoke()
+    with open(card_path) as f:
+        lines = [json.loads(x) for x in f]
+    out = {}
+    for line in lines:
+        if "against_jax" not in line:
+            continue
+        name = line["file"]
+        missed = sorted(int(i) for i, t in
+                        line["against_jax"]["kept_differ"].items()
+                        if not t["near_tie"])
+        conf = te.file_config(smoke, name, store, sparse_input=False)
+        test = MegapixelMNIST(conf, train=False)
+        run = dict(manifest()[name]["overrides"], steps_per_dispatch=1,
+                   sparse_input=False)
+        variants = {v: (restore_step(manifest()[name]["source"], over)[0],
+                        jax_config(over))
+                    for v, over in (("run", run), ("fp32", dict(run, **FP32)))}
+        jax_kept = calibration_file()[name]["predictor"]["kept"]
+        card_kept = line["predictor"]["kept"]
+        parted, run_ok, fp32_ok = {}, 0, 0
+        t0 = time.perf_counter()
+        n = min(images, len(test))
+        for lo in range(0, n, conf.B_seq):
+            rows = list(range(lo, min(lo + conf.B_seq, n)))
+            x = np.stack([test[i]["input"] for i in rows]).astype(np.float32)
+            rep = {v: _replay_jax(tr, c, x) for v, (tr, c) in variants.items()}
+            for r, i in enumerate(rows):
+                fin = {v: np.sort(rep[v][-1]["kept"][r]).tolist()
+                       for v in rep}
+                run_ok += fin["run"] == jax_kept[i]
+                fp32_ok += i in missed and fin["fp32"] == card_kept[i]
+                rpt = _first_parting(rep["run"], rep["fp32"], r, conf.M)
+                if rpt is not None:
+                    parted[i] = dict(rpt, near_tie=te.is_near_tie(rpt),
+                                     card_missed=i in missed,
+                                     fp32_kept=fin["fp32"])
+            print(json.dumps({"file": name, "images": rows[-1] + 1,
+                              "parted": len(parted),
+                              "seconds": time.perf_counter() - t0}),
+                  flush=True)
+        res = {"images": n, "parted": parted, "card_missed": missed,
+               "card_missed_near_tie_jax": [
+                   te.is_near_tie(parted.get(i)) for i in missed],
+               "run_final_equals_predictor": run_ok,
+               "fp32_final_equals_card_where_card_missed": fp32_ok,
+               "seconds": time.perf_counter() - t0}
+        out[name] = res
+        print(json.dumps({name: {k: v for k, v in res.items()
+                                 if k != "parted"}}), flush=True)
+    return out
+
+
 def calibration_file() -> dict:
     with open(os.path.join(OUT, "calibration", "jax_cpu_160.json")) as f:
         return json.load(f)
@@ -376,12 +519,19 @@ def main(argv=None) -> int:
     k.add_argument("--store", required=True)
     k.add_argument("--card", required=True)
     k.add_argument("--out", required=True)
+    n = sub.add_parser("near-tie-jax")
+    n.add_argument("--store", required=True)
+    n.add_argument("--images", type=int, default=160)
+    n.add_argument("--card", required=True)
+    n.add_argument("--out", required=True)
     a = p.parse_args(argv)
     if a.cmd == "write":
         write(a.out)
         return 0
     res = (calibrate(a.store, a.images) if a.cmd == "calibrate"
            else full_eval(a.store) if a.cmd == "full-eval"
+           else near_tie_jax(a.store, a.images, a.card)
+           if a.cmd == "near-tie-jax"
            else kept_in_fp32(a.store, a.card))
     with open(a.out, "w") as fh:
         json.dump(res, fh)
