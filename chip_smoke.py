@@ -44,16 +44,18 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                per step, peak memory and a profiler breakdown of one
                epoch with the device's idle share;
   8. parallel — data and exact context parallelism at the same full
-               width on phase driver's store, two ranks sharing cuda:0
-               over gloo (``ips_tpu_torch.parallel``): one K = 8 group of
-               fused sparse steps at 2x1 and at 1x2 from the seed's
-               weights against one process (kept sets equal or parted
-               at a near tie, losses within a stated bound, parameters,
-               AdamW moments and running statistics bitwise equal on both
-               ranks, rank 0's ``score_logits`` launches), the local merge
-               over the 2 ranks against one process's, ms a step and the
-               collectives' CUDA-event ms (two ranks on one card: no
-               multi-card speed); the CLI under
+               width on phase driver's store, ranks sharing cuda:0 over
+               gloo (``ips_tpu_torch.parallel``): one K = 8 group of
+               fused sparse steps at 2x1 and at 1x2 (two ranks) and at
+               2x2 (four ranks, each in a data group and a patch group)
+               from the seed's weights against one process (kept sets
+               equal or parted at a near tie, losses within a stated
+               bound, parameters, AdamW moments and running statistics
+               bitwise equal on every rank, rank 0's ``score_logits``
+               launches), the local merge at 1x2 and 2x2 against one
+               process's, ms a step and the collectives' CUDA-event ms
+               (ranks time-sliced on one card: no multi-card speed); the
+               CLI under
                ``torch.distributed.run`` as 2 ranks for one epoch against
                phase driver's epoch 0; a one-rank NCCL world whose 1x1
                sharded step is bitwise the single trainer's;
@@ -62,7 +64,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                config/camelyon_config.yml (2048-dim features projected to
                D = 512, M = I = 5000, B = 16 from B_seq = 1 slots, K = 4,
                bf16, ln_fold) on a synthetic corpus made from the seed (64
-               train slides of 5001..10000 rows, one bucket; 16 test slides
+               train slides of 5001..10000 rows, one bucket; 8 test slides
                of 2000..15000 rows, buckets 5000 to 15000): 2 epochs, 16
                fp32 ``score_logits`` launches per optimizer step and one
                per 5000-row chunk beyond the first M in eval, metrics
@@ -124,9 +126,10 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
  13. parallel_camelyon — (runs after camelyon) streaming selection
                under a mesh and B_seq < B over data ranks at the full
                width of both camelyon configs, two ranks sharing cuda:0
-               over gloo, each making phase camelyon_e2e's corpus and the
-               first slides of phase camelyon's from the seed (one process
-               takes phase camelyon's own):
+               over gloo, each making phase camelyon_e2e's corpus from
+               the seed and reading the first slides of phase camelyon's
+               corpus from files this process writes (one process takes
+               phase camelyon's own):
                (a) the streamed selection of a 2304-tile train slide at
                1x2, every stage of each rank holding 128 of each chunk's
                256 tiles, its kept indices against one process's (or
@@ -151,7 +154,7 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                patches of 100x100x3, M = 10, I = 32, B = 16, ResNet-18
                with all 4 blocks, D = 512, bf16, fp32 host normalization,
                8 loader threads) on a synthetic STS corpus made in memory
-               from the seed (30 images a set): 2 epochs (the dense eager
+               from the seed (20 images a set): 2 epochs (the dense eager
                schedule, padded tail batches), 6 ``score_logits``
                launches per step and per eval batch, metrics lines, the
                saved checkpoint restored bitwise, one augmented batch's
@@ -224,6 +227,15 @@ Run from the repository root on a machine with a CUDA card, ``nvcc`` and
                CPU; draws 0..7 trained as shipped, the count whose last
                10 steps' mean loss is under a stated bar beside the JAX
                package's count on the CPU, and Fisher's p.
+ 21. e2e_shipped — (runs after camelyon_e2e) config/camelyon_e2e_config.yml
+               as shipped, ``grad_encode_chunk`` 0 (the whole B * M =
+               2048-tile re-encode at once), through the driver for one
+               epoch on phase camelyon_e2e's corpus, in a process of its
+               own: the outcome recorded for the card, the trainer's
+               ``GradEncodeMemoryError`` from the first step's re-encode
+               after all 8 train slides were selected (64 launches), a
+               non-zero exit whose stderr names ``grad_encode_chunk``,
+               and no checkpoint or metrics line written.
 
 Any failed phase raises, so the script exits non-zero. The line before
 the last is a JSON object with one entry per kernel; the last line is
@@ -366,7 +378,7 @@ SHIPPED_WINDOW_IMAGES = 16 * 16 + 8
 # phase camelyon: (slides, rows drawn from [lo, hi)) of the synthetic
 # corpus; the train set is one K = 4 group of four B = 16 steps at the
 # reference's N = 10k bucket, the test set crosses buckets 5000..15000
-CAMELYON_TRAIN, CAMELYON_TEST = (64, (5001, 10001)), (16, (2000, 15001))
+CAMELYON_TRAIN, CAMELYON_TEST = (64, (5001, 10001)), (8, (2000, 15001))
 CAMELYON_EPOCHS = 2
 # the assembled step's selection schedules timed after the run, an epoch
 # each
@@ -378,18 +390,29 @@ CAMELYON_SCHEDULES = (False, "auto")
 E2E_TRAIN_SLIDES, E2E_TRAIN_TILES = 8, (1281, 2305)
 E2E_TEST_TILES = (200, 700, 1200, 2000)
 E2E_EPOCHS = 2
-# the train step re-encodes B * M = 2048 tiles with gradients; in slices of
-# B * 32 (the JAX package's own runs at this tile shape used 32)
+# the train step re-encodes B * M = 2048 tiles with gradients. As shipped
+# (grad_encode_chunk 0, all at once) the first step runs out of the card
+# in its re-encode (phase e2e_shipped; step_memory.py: 70.93 GiB allocated
+# and 6.12 GiB more asked of 79.18 GiB), so this phase re-encodes slices
+# of B * 32 tiles, as the JAX package's own runs at this tile shape did:
+# step_memory.py's peak 29174.5 MiB and 2678.8 ms a step, against 14804.2
+# MiB, 2826.5 ms at 16 and 57912.0 MiB, 2557.7 ms at 64 (NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md §5)
 E2E_GRAD_ENCODE_CHUNK = 32
+# phase e2e_shipped: the shipped config (grad_encode_chunk 0) through the
+# driver in a process of its own, one epoch on phase camelyon_e2e's
+# corpus, and that process's deadline in seconds
+E2E_SHIPPED_EPOCHS, E2E_SHIPPED_TIMEOUT = 1, 300
 # streaming selection's peak memory may not grow with N: a 2304-tile and a
 # 1280-tile slide peak within this of each other
 E2E_PEAK_TOL = 64 * 2**20
 
 # phase traffic: a synthetic STS corpus in memory at the size of the JAX
-# package's own traffic learning run, 1200 x 1600 (RESULTS.md), 30 images
+# package's own traffic learning run, 1200 x 1600 (RESULTS.md), 20 images
 # a set (cut from STS's ~750 train images): after the visibility filter
-# 29 a split, one full batch of B = 16 and a padded tail of 13; 2 epochs
-TRAFFIC_IMAGES, TRAFFIC_HW, TRAFFIC_EPOCHS = 30, (1200, 1600), 2
+# 20 train and 19 test images, one full batch of B = 16 and a padded tail
+# of 4 and 3; 2 epochs
+TRAFFIC_IMAGES, TRAFFIC_HW, TRAFFIC_EPOCHS = 20, (1200, 1600), 2
 # host time of one train item, averaged over this many items
 TRAFFIC_HOST_ITEMS = 2
 
@@ -451,10 +474,12 @@ DEMO_STEPS, DEMO_DRAWS, DEMO_BAR = 60, 8, 0.35
 DEMO_CPU_STEPS, DEMO_CPU_RTOL = 3, 1e-4
 
 # phase parallel: worlds of ranks sharing cuda:0 (gloo), each with this
-# deadline in seconds; the meshes (data, patch) of its checked groups;
-# the generators' seed; repetitions of each timed collective
+# deadline in seconds; each world's size and the meshes (data, patch) of
+# its checked groups (a rank of the 2x2 mesh is in a data group and a
+# patch group at once); the generators' seed; repetitions of each timed
+# collective
 PARALLEL_TIMEOUT = 240
-PARALLEL_MESHES = ((2, 1), (1, 2))
+PARALLEL_WORLDS = ((2, ((2, 1), (1, 2))), (4, ((2, 2),)))
 PARALLEL_SEED = 500
 PARALLEL_REPEATS = 20
 # Losses against one process's. The first step of a K group differs only
@@ -1886,11 +1911,16 @@ def _event_ms(torch, fn, repeats=PARALLEL_REPEATS):
     return start.elapsed_time(end) / repeats
 
 
+def _mesh_tag(mesh):
+    return f"{mesh[0]}x{mesh[1]}"
+
+
 def parallel_rank(argv):
     """One rank of phase parallel (started by ``run_world``; gloo, every
-    rank on cuda:0): for each mesh of PARALLEL_MESHES one checked K group
-    from the seed's weights (its launches counted) and one timed group;
-    the collectives' times; the local-merge selection of batch 0."""
+    rank on cuda:0): for each mesh of ``argv[1]`` ("2x1,1x2": each covers
+    the world) one checked K group from the seed's weights (its launches
+    counted) and one timed group; the collectives' times; the local-merge
+    selection of batch 0 over patch groups of 2."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1898,13 +1928,15 @@ def parallel_rank(argv):
     from ips_tpu_torch.parallel import distributed as pdist
     from ips_tpu_torch.parallel.ips_sharded import ShardedIPSTrainer
     tmp = argv[0]
+    meshes = [tuple(int(v) for v in m.split("x"))
+              for m in argv[1].split(",")]
     with open(os.path.join(tmp, "conf.json")) as f:
         conf_d = json.load(f)
     pdist.initialize(cpu_collectives="gloo")
-    rank = dist.get_rank()
+    rank, world = dist.get_rank(), dist.get_world_size()
     out = {"device": str(pdist.local_device()), "launches": 0}
-    for data, patch in PARALLEL_MESHES:
-        tag = f"{data}x{patch}"
+    for data, patch in meshes:
+        tag = _mesh_tag((data, patch))
         conf = parallel_conf(**dict(conf_d, mesh_data=data,
                                     mesh_patch=patch))
         tr = ShardedIPSTrainer(conf)
@@ -1932,17 +1964,18 @@ def parallel_rank(argv):
             out[tag]["allreduce_ms"] = _event_ms(
                 torch, lambda: pdist.all_reduce_sum(grads))
             out[tag]["allreduce_elems"] = sum(g.numel() for g in grads)
-    # local merge: one selection of batch 0 over the 2 ranks' shards
-    conf = parallel_conf(**dict(conf_d, mesh_patch=2,
+    # local merge: one selection of batch 0, each data rank's rows over
+    # its patch group's 2 shards
+    conf = parallel_conf(**dict(conf_d, mesh_data=world // 2, mesh_patch=2,
                                 cp_select="local_merge"))
     tr = ShardedIPSTrainer(conf)
-    b = parallel_batches(np, conf)[0]
+    b = parallel_batches(np, conf, tr.mesh.coords[0], world // 2)[0]
     with torch.no_grad():
         x = tr.densify(b["input_idx"], b["input_val"],
                        tuple(int(v) for v in b["img_hw"][0]))
         out["merge_idx"] = tr.select(
             x, None, tr.new_generator(PARALLEL_SEED))[2].cpu()
-    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    torch.save(out, os.path.join(tmp, f"world{world}_rank{rank}.pt"))
     dist.destroy_process_group()
 
 
@@ -1991,12 +2024,11 @@ def _explain(torch, conf, x, mask, seed, single, other, what):
 
 def phase_parallel(torch, np, device, card, data, driver_rows):
     """Data and exact context parallelism at the shipped config's full
-    width, two ranks sharing cuda:0 (gloo), against one process; the
-    local merge; the CLI as two ranks against phase driver's epoch 0; a
-    one-rank NCCL world. Returns rank 0's score_logits launches over the
-    meshes' checked and timed groups and the local merge."""
+    width, worlds of two and four ranks sharing cuda:0 (gloo), against
+    one process; the local merge; the CLI as two ranks against phase
+    driver's epoch 0; a one-rank NCCL world. Returns rank 0's
+    score_logits launches over the meshes' checked groups."""
     from ips_tpu_torch.models.ips_net import IPSModel
-    from ips_tpu_torch.ops import score_kernel as sk
     from ips_tpu_torch.parallel.ips_sharded import ips_select_cp
     from ips_tpu_torch.parallel.launch import run_world
     from ips_tpu_torch.train.steps import IPSTrainer
@@ -2010,16 +2042,7 @@ def phase_parallel(torch, np, device, card, data, driver_rows):
         K, n_iter = conf.steps_per_dispatch, math.ceil(
             (conf.N - conf.M) / conf.I)
 
-        # (a) two-rank world: 2x1 and 1x2 groups, collectives, local merge
-        t0 = time.perf_counter()
-        run_world("chip_smoke:parallel_rank", 2, [tmp],
-                  timeout=PARALLEL_TIMEOUT, python_path=[repo])
-        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
-                            weights_only=False) for r in range(2)]
-        log(f"  2 ranks on {ranks[0]['device']} and {ranks[1]['device']} "
-            f"(gloo): {time.perf_counter() - t0:.2f} s for the world")
-
-        # one process: the same group from the same weights
+        # one process: the group the worlds run, from the same weights
         single = IPSTrainer(conf)
         batches = parallel_batches(np, conf)
         snaps = []
@@ -2031,6 +2054,17 @@ def phase_parallel(torch, np, device, card, data, driver_rows):
               for b in batches]
         mask = torch.ones((conf.B, conf.N), dtype=torch.bool, device=device)
         rows_all = torch.arange(conf.B, device=device)[:, None]
+        # and its ips_select_cp over 2 shards, the local merge's reference
+        merge = IPSTrainer(conf)
+        encode, score = merge._enc_score_fns()
+        with torch.no_grad():
+            merge_ref = ips_select_cp(
+                encode, score, xs[0], M=conf.M, I=conf.I, n_shards=2,
+                pos_table=merge.pos_table, mask=None,
+                generator=merge.new_generator(PARALLEL_SEED),
+                shuffle=conf.shuffle,
+                shuffle_style=conf.shuffle_style).mem_idx.cpu()
+        del merge
 
         def model_from(state):
             m = IPSModel(conf).to(device)
@@ -2038,29 +2072,53 @@ def phase_parallel(torch, np, device, card, data, driver_rows):
             m.pos_table = single.pos_table
             return m
 
-        for data_ax, patch_ax in PARALLEL_MESHES:
-            tag = f"{data_ax}x{patch_ax}"
-            r0, r1 = ranks[0][tag], ranks[1][tag]
-            bad = [k for k in r0["state"]
-                   if not torch.equal(r0["state"][k], r1["state"][k])]
-            if bad:
-                raise AssertionError(f"{tag}: ranks differ in {bad[:5]}")
-            if not torch.equal(r0["losses"], r1["losses"]):
-                raise AssertionError(f"{tag}: ranks report other losses")
-            k_rows = r0["rows"]
-            n_same = n_order = 0
-            for k in range(K):
-                for r, rk in enumerate(ranks):
-                    d = r // patch_ax
-                    rows = slice(d * k_rows, (d + 1) * k_rows)
-                    got, ref = rk[tag]["idx"][k], idx1[k][rows]
-                    if torch.equal(got, ref):
-                        n_same += 1
+        # (a) the worlds: 2 ranks at 2x1 and 1x2, 4 ranks at 2x2; each
+        # mesh's group against one process's, collectives, local merge
+        launches, timed = 0, {}
+        for world, meshes in PARALLEL_WORLDS:
+            t0 = time.perf_counter()
+            run_world("chip_smoke:parallel_rank", world,
+                      [tmp, ",".join(_mesh_tag(m) for m in meshes)],
+                      timeout=PARALLEL_TIMEOUT, python_path=[repo])
+            ranks = [torch.load(os.path.join(
+                tmp, f"world{world}_rank{r}.pt"), weights_only=False)
+                for r in range(world)]
+            log(f"  {world} ranks on "
+                f"{', '.join(sorted({rk['device'] for rk in ranks}))} "
+                f"(gloo): {time.perf_counter() - t0:.2f} s for the world")
+            for data_ax, patch_ax in meshes:
+                tag = _mesh_tag((data_ax, patch_ax))
+                r0 = ranks[0][tag]
+                for r, rk in enumerate(ranks[1:], 1):
+                    bad = [k for k in r0["state"]
+                           if not torch.equal(r0["state"][k],
+                                              rk[tag]["state"][k])]
+                    if bad:
+                        raise AssertionError(
+                            f"{tag}: ranks 0 and {r} differ in {bad[:5]}")
+                    if not torch.equal(r0["losses"], rk[tag]["losses"]):
+                        raise AssertionError(
+                            f"{tag}: rank {r} reports other losses")
+                k_rows = r0["rows"]
+                n_same = n_order = 0
+                for k in range(K):
+                    parted = []
+                    for r, rk in enumerate(ranks):
+                        d = r // patch_ax
+                        rows = slice(d * k_rows, (d + 1) * k_rows)
+                        got, ref = rk[tag]["idx"][k], idx1[k][rows]
+                        if torch.equal(got, ref):
+                            n_same += 1
+                        elif torch.equal(got.sort(1).values,
+                                         ref.sort(1).values):
+                            n_order += 1        # the same kept set
+                        else:
+                            parted.append(r)
+                    if not parted:
                         continue
-                    if torch.equal(got.sort(1).values, ref.sort(1).values):
-                        n_order += 1        # the same kept set
-                        continue
-                    # replay step k with each side's weights
+                    # replay step k over the whole batch with each side's
+                    # weights (the same on every rank): once for the ranks
+                    # that parted
                     m1 = model_from(snaps[k])
                     mr = model_from(r0["snapshots"][k])
                     x = xs[k]
@@ -2068,69 +2126,78 @@ def phase_parallel(torch, np, device, card, data, driver_rows):
                     def e1(i, m=m1, x=x):
                         return m.encode(x[rows_all, i])
 
-                    def er(i, m=mr, x=x):
-                        # the ranks' encodes: I / n_cp patches a call
+                    def er(i, m=mr, x=x, data_ax=data_ax, patch_ax=patch_ax):
+                        # the ranks' encodes: each data rank's rows, I /
+                        # n_cp patches a call
                         h = conf.I // patch_ax
-                        if patch_ax > 1 and i.shape[1] % h == 0:
-                            return torch.cat([m.encode(x[rows_all,
-                                                         i[:, j:j + h]])
-                                              for j in range(0, i.shape[1],
-                                                             h)], 1)
-                        if data_ax > 1:
-                            return torch.cat([m.encode(
-                                x[rows_all[s], i[s]]) for s in (
-                                slice(j * k_rows, (j + 1) * k_rows)
-                                for j in range(data_ax))])
-                        return m.encode(x[rows_all, i])
+                        split = patch_ax > 1 and i.shape[1] % h == 0
+                        parts = []
+                        for j in range(data_ax):
+                            s = slice(j * k_rows, (j + 1) * k_rows)
+                            if split:
+                                parts.append(torch.cat([m.encode(
+                                    x[rows_all[s], i[s, q:q + h]])
+                                    for q in range(0, i.shape[1], h)], 1))
+                            else:
+                                parts.append(m.encode(x[rows_all[s], i[s]]))
+                        return torch.cat(parts)
 
                     with torch.inference_mode():
                         _explain(torch, conf, x, mask, PARALLEL_SEED + k,
                                  (m1, e1), (mr, er),
-                                 f"{tag} step {k} rank {r} selection")
-            diff = (r0["losses"] - loss1).abs().max().item()
-            diff0 = (r0["losses"][0] - loss1[0]).abs().item()
-            log(f"  {tag}: {K} steps of {k_rows} rows a rank; selections "
-                f"equal to one process's in {n_same} of {2 * K} rank-steps, "
-                f"the same sets in another order in {n_order}; "
-                f"losses {[round(v, 5) for v in r0['losses'].tolist()]} "
-                f"against {[round(v, 5) for v in loss1.tolist()]} (|diff| "
-                f"{diff0:.3e} at the first step, bound {PARALLEL_STEP0_TOL}; "
-                f"{diff:.3e} at most, bound {PARALLEL_LOSS_TOL}); params, "
-                f"AdamW moments and running statistics bitwise equal on "
-                f"both ranks ({len(r0['state'])} tensors)")
-            if diff > PARALLEL_LOSS_TOL or diff0 > PARALLEL_STEP0_TOL:
-                raise AssertionError(f"{tag}: losses off by {diff:.3e}")
+                                 f"{tag} step {k} selection of ranks "
+                                 f"{parted}")
+                diff = (r0["losses"] - loss1).abs().max().item()
+                diff0 = (r0["losses"][0] - loss1[0]).abs().item()
+                log(f"  {tag}: {K} steps of {k_rows} rows a rank; selections "
+                    f"equal to one process's in {n_same} of "
+                    f"{len(ranks) * K} rank-steps, the same sets in another "
+                    f"order in {n_order}; losses "
+                    f"{[round(v, 5) for v in r0['losses'].tolist()]} against "
+                    f"{[round(v, 5) for v in loss1.tolist()]} (|diff| "
+                    f"{diff0:.3e} at the first step, bound "
+                    f"{PARALLEL_STEP0_TOL}; {diff:.3e} at most, bound "
+                    f"{PARALLEL_LOSS_TOL}); params, AdamW moments and running "
+                    f"statistics bitwise equal on all {len(ranks)} ranks "
+                    f"({len(r0['state'])} tensors)")
+                if diff > PARALLEL_LOSS_TOL or diff0 > PARALLEL_STEP0_TOL:
+                    raise AssertionError(f"{tag}: losses off by {diff:.3e}")
+                timed[tag] = r0
 
-        # the local merge against one process's ips_select_cp(n_shards=2)
-        merge = IPSTrainer(conf)
-        encode, score = merge._enc_score_fns()
-        with torch.no_grad():
-            ref = ips_select_cp(
-                encode, score, xs[0], M=conf.M, I=conf.I, n_shards=2,
-                pos_table=merge.pos_table, mask=None,
-                generator=merge.new_generator(PARALLEL_SEED),
-                shuffle=conf.shuffle,
-                shuffle_style=conf.shuffle_style).mem_idx.cpu()
-        for r, rk in enumerate(ranks):
-            if not torch.equal(rk["merge_idx"], ref):
-                raise AssertionError(f"local merge: rank {r} differs")
-        log("  local_merge (n_shards = 2 over the 2 ranks): indices "
-            "bitwise equal to one process's ips_select_cp")
+            # the local merge against one process's ips_select_cp
+            # (n_shards = 2), each rank over its data rank's rows
+            m_rows = conf.B // (world // 2)
+            for r, rk in enumerate(ranks):
+                d = r // 2
+                if not torch.equal(rk["merge_idx"],
+                                   merge_ref[d * m_rows:(d + 1) * m_rows]):
+                    raise AssertionError(
+                        f"local merge: rank {r} of {world} differs")
+            log(f"  local_merge at {world // 2}x2 (n_shards = 2 over each "
+                f"patch group): indices bitwise equal to one process's "
+                "ips_select_cp in every rank's rows")
+            want = len(meshes) * K * n_iter
+            if ranks[0]["launches"] != want:
+                raise AssertionError(
+                    f"rank 0 of {world} launched score_logits "
+                    f"{ranks[0]['launches']} times, expected {want}")
+            launches += ranks[0]["launches"]
+            del ranks
 
-        # times: two ranks share one card, so these are no multi-card speed
-        r0 = ranks[0]
-        log(f"  ms a step (host clock, K = {K} group): 2x1 "
-            f"{r0['2x1']['step_ms']:.2f}, 1x2 {r0['1x2']['step_ms']:.2f}; "
-            f"exact-CP all-gather of {tuple(r0['1x2']['gather_shape'])} "
-            f"fp32 {r0['1x2']['gather_ms']:.4f} ms, gradient all-reduce of "
-            f"{r0['2x1']['allreduce_elems']} fp32 "
-            f"{r0['2x1']['allreduce_ms']:.4f} ms (CUDA events, gloo); two "
-            f"ranks share one card: not multi-card speeds; card {card}")
-        launches = r0["launches"]
-        want = len(PARALLEL_MESHES) * K * n_iter
-        if launches != want:
-            raise AssertionError(f"rank 0 launched score_logits {launches} "
-                                 f"times, expected {want}")
+        # times: the ranks share one card, so these are no multi-card speed
+        log("  ms a step (host clock, K = "
+            f"{K} group, rank 0): "
+            + ", ".join(f"{t} {r['step_ms']:.2f}" for t, r in timed.items())
+            + "; " + ", ".join(
+                f"{t} exact-CP all-gather of {tuple(r['gather_shape'])} fp32 "
+                f"{r['gather_ms']:.4f} ms" for t, r in timed.items()
+                if "gather_ms" in r)
+            + "; " + ", ".join(
+                f"{t} gradient all-reduce of {r['allreduce_elems']} fp32 "
+                f"{r['allreduce_ms']:.4f} ms" for t, r in timed.items()
+                if "allreduce_ms" in r)
+            + " (CUDA events, gloo); 2 or 4 ranks time-sliced on one card: "
+            f"no multi-card speed; card {card}")
 
         # (b) the CLI as two ranks, one epoch, against phase driver's
         cfg = os.path.join(tmp, "cli.json")
@@ -2193,11 +2260,11 @@ def n_chunks(conf, bucket):
     return max(0, math.ceil((bucket - conf.M) / conf.I))
 
 
-def run_driver(torch, conf, dataset, datasets):
-    """``main.run`` on in-memory datasets, on the card by default, with
-    the ``score_logits`` launches of each ``evaluate`` counted apart;
-    returns (trainer, wall s, launches, [launches of each eval], peak
-    bytes)."""
+def run_driver(torch, conf, dataset, datasets, epochs=None):
+    """``main.run`` on in-memory datasets (``epochs``: its argument), on
+    the card by default, with the ``score_logits`` launches of each
+    ``evaluate`` counted apart; returns (trainer, wall s, launches,
+    [launches of each eval], peak bytes)."""
     from ips_tpu_torch import main as driver
     from ips_tpu_torch.ops import score_kernel as sk
     eval_launches = []
@@ -2213,7 +2280,8 @@ def run_driver(torch, conf, dataset, datasets):
     sk.logits.launches = 0
     t0 = time.perf_counter()
     try:
-        trainer, _, _ = driver.run(conf, dataset, datasets=datasets)
+        trainer, _, _ = driver.run(conf, dataset, datasets=datasets,
+                                   epochs=epochs)
         torch.cuda.synchronize()
     finally:
         driver.evaluate = evaluate
@@ -2388,6 +2456,100 @@ def e2e_corpus(conf):
                 counts, tile_hw, seed=SEED)),
             CamelyonPatches(conf, False, slides=synth_tile_slides(
                 E2E_TEST_TILES, tile_hw, seed=SEED + 1)))
+
+
+def e2e_shipped_run(argv):
+    """Phase e2e_shipped's child process: the camelyon_e2e CLI's run,
+    ``main.run`` after ``main.main``'s numerics, with
+    CAMELYON_E2E_CONFIG as shipped (no ``grad_encode_chunk``: 0), one
+    epoch, a checkpoint and metrics lines asked for in ``argv[0]``, on
+    phase camelyon_e2e's corpus in memory (the card's machine has no
+    pandas to read the file corpus); the shipped lr schedule. Writes
+    ``run.json`` there when the run ends, and ``launches.json``, the
+    ``score_logits`` launches, however it ends; an error ends the process
+    as it ends the CLI."""
+    import torch
+    from ips_tpu_torch.config import config_from_dict
+    from ips_tpu_torch.ops import score_kernel as sk
+    from ips_tpu_torch.utils.device import fp32_matmuls
+    out = argv[0]
+    fp32_matmuls()
+    conf = config_from_dict(dict(
+        CAMELYON_E2E_CONFIG, checkpoint_dir=os.path.join(out, "ckpt"),
+        checkpoint_every=1, metrics_path=os.path.join(out, "metrics.jsonl")))
+    counts, train_ds, test_ds = e2e_corpus(conf)
+    try:
+        trainer, wall, launches, eval_launches, peak = run_driver(
+            torch, conf, "camelyon_e2e", (train_ds, test_ds),
+            epochs=E2E_SHIPPED_EPOCHS)
+    finally:
+        with open(os.path.join(out, "launches.json"), "w") as f:
+            json.dump({"launches": sk.logits.launches}, f)
+    with open(os.path.join(out, "run.json"), "w") as f:
+        json.dump({"grad_encode_chunk": trainer.conf.grad_encode_chunk,
+                   "step": trainer.step, "wall_s": wall,
+                   "launches": launches, "eval_launches": eval_launches,
+                   "peak_mib": peak / 2**20, "counts": counts}, f)
+    return 0
+
+
+def phase_e2e_shipped(torch, card):
+    """camelyon_e2e as shipped (``grad_encode_chunk`` 0) through the
+    driver in a process of its own (``e2e_shipped_run``), so that the
+    near-full card is that process's; this process empties its cache
+    first. Asserts the outcome PERF.md records for the card: the unchunked
+    first step runs out of memory in its gradient re-encode after every
+    train slide was selected, and the run ends non-zero with the trainer's
+    ``GradEncodeMemoryError`` naming ``grad_encode_chunk``, before any
+    checkpoint or metrics line. Returns the child's score_logits
+    launches."""
+    import re
+    from ips_tpu_torch.config import config_from_dict
+    repo = os.path.dirname(os.path.abspath(__file__))
+    conf = config_from_dict(CAMELYON_E2E_CONFIG)
+    tmp = tempfile.mkdtemp(prefix="ips_tpu_torch_e2e_shipped_")
+    try:
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+             "chip_smoke.e2e_shipped_run(sys.argv[1:]))", tmp],
+            cwd=repo, capture_output=True, text=True, errors="replace",
+            timeout=E2E_SHIPPED_TIMEOUT)
+        wall = time.perf_counter() - t0
+        tail = proc.stdout[-2000:] + proc.stderr[-4000:]
+        err = re.search(r"GradEncodeMemoryError: (.*)", proc.stderr)
+        with open(os.path.join(tmp, "launches.json")) as f:
+            launches = json.load(f)["launches"]
+        want = E2E_TRAIN_SLIDES * n_chunks(conf, 2304)
+        if (proc.returncode == 0 or err is None
+                or "grad_encode_chunk=0" not in err.group(1)
+                or f"B·M = {conf.B}·{conf.M}" not in err.group(1)
+                or "in train_step" not in proc.stderr):
+            raise AssertionError(
+                "the shipped camelyon_e2e run did not end as recorded (the "
+                "first step's re-encode out of memory at "
+                f"grad_encode_chunk 0): exit {proc.returncode}\n{tail}")
+        if launches != want:
+            raise AssertionError(
+                f"the shipped run launched score_logits {launches} times "
+                f"before it ended, expected {want} (every train slide "
+                f"selected)\n{tail}")
+        written = [os.path.join(d, f) for d, _, fs in os.walk(tmp)
+                   for f in fs if f != "launches.json"]
+        if written:
+            raise AssertionError(f"the failed run wrote {written}")
+        log(f"  shipped config (grad_encode_chunk "
+            f"{conf.grad_encode_chunk}), one epoch of the driver on "
+            f"{E2E_TRAIN_SLIDES} train slides in a process of its own "
+            f"({wall:.2f} s; this process held {held / 2**30:.2f} GiB "
+            f"reserved): exit {proc.returncode} after {launches} "
+            f"score_logits launches (every train slide selected), no "
+            f"checkpoint and no metrics line; {err.group(1)}; card {card}")
+        return launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def phase_camelyon_e2e(torch, np, device, card):
@@ -2660,6 +2822,32 @@ def camelyon_corpus(conf, counts=None, slides=None):
     return tuple(sets), tuple(made)
 
 
+def save_slides(np, slides, path):
+    """The first PC_CAMELYON_SLIDES of phase camelyon's two slide dicts
+    as .npy files in ``path``, for the ranks of phase parallel_camelyon
+    to read instead of drawing them again (``load_slides``)."""
+    from itertools import islice
+    os.makedirs(path)
+    index = []
+    for part, n, made in zip("ab", PC_CAMELYON_SLIDES, slides):
+        index.append([])
+        for name, (feats, label) in islice(made.items(), n):
+            np.save(os.path.join(path, f"{part}_{name}.npy"), feats)
+            index[-1].append((name, int(label)))
+    with open(os.path.join(path, "index.json"), "w") as f:
+        json.dump(index, f)
+
+
+def load_slides(np, path):
+    """``save_slides``' two dicts, in their order, memory-mapped."""
+    with open(os.path.join(path, "index.json")) as f:
+        index = json.load(f)
+    return tuple({name: (np.load(os.path.join(path, f"{part}_{name}.npy"),
+                                 mmap_mode="r"), label)
+                  for name, label in names}
+                 for part, names in zip("ab", index))
+
+
 def pc_e2e_conf(**over):
     """Phase camelyon_e2e's config for one epoch (one optimizer step of
     B = 8 on its 8 train slides)."""
@@ -2693,7 +2881,9 @@ def parallel_camelyon_rank(argv):
     on cuda:0): (a) the streamed selection of the 2304-tile train slide at
     1x2, its stages and peak; (b) ``main.run`` of camelyon_e2e at 2x1 for
     one epoch, the 8 train slides as the test set too; (c) ``main.run`` of
-    camelyon features at 2x1 for one epoch. Saves what each computed."""
+    camelyon features at 2x1 for one epoch, on the slides ``save_slides``
+    wrote in ``argv[1]`` where given, else drawn from the seed. Saves what
+    each computed."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2753,7 +2943,9 @@ def parallel_camelyon_rank(argv):
     # four steps; the test set's first slides
     conf = pc_camelyon_conf(mesh_data=2, metrics_path=os.path.join(
         tmp, "camelyon.jsonl"), **mh)
-    datasets, _ = camelyon_corpus(conf, PC_CAMELYON_SLIDES)
+    datasets, _ = camelyon_corpus(conf, PC_CAMELYON_SLIDES,
+                                  load_slides(np, argv[1]) if argv[1:]
+                                  else None)
     torch.cuda.reset_peak_memory_stats()
     sk.logits.launches = 0
     with StepRecorder() as rec:
@@ -2791,7 +2983,15 @@ def phase_parallel_camelyon(torch, np, device, card, slides=None):
     tmp = tempfile.mkdtemp(prefix="ips_tpu_torch_parallel_camelyon_")
     try:
         t0 = time.perf_counter()
-        run_world("chip_smoke:parallel_camelyon_rank", 2, [tmp],
+        args = [tmp]
+        if slides is not None:
+            # the ranks read phase camelyon's slides rather than draw them
+            args.append(os.path.join(tmp, "slides"))
+            save_slides(np, slides, args[1])
+            log(f"  phase camelyon's first {PC_CAMELYON_SLIDES} train and "
+                f"test slides written for the ranks in "
+                f"{time.perf_counter() - t0:.2f} s")
+        run_world("chip_smoke:parallel_camelyon_rank", 2, args,
                   timeout=PC_TIMEOUT, python_path=[repo])
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"),
                             weights_only=False) for r in range(2)]
@@ -3980,6 +4180,8 @@ def _phases(torch, np, device, t_start, shipped_tmp, shipped_data,
     del slides
     with Phase("camelyon_e2e"):
         e2e_launches = phase_camelyon_e2e(torch, np, device, card)
+    with Phase("e2e_shipped"):
+        shipped_e2e_launches = phase_e2e_shipped(torch, card)
     with Phase("mnist_shipped"):
         shipped_launches = phase_mnist_shipped(
             torch, np, device, card, shipped_tmp, shipped_data, writers)
@@ -4001,6 +4203,7 @@ def _phases(torch, np, device, t_start, shipped_tmp, shipped_data,
                                  "parallel": parallel_launches,
                                  "camelyon": camelyon_launches,
                                  "camelyon_e2e": e2e_launches,
+                                 "e2e_shipped": shipped_e2e_launches,
                                  "mnist_shipped": shipped_launches,
                                  "trained": trained_launches,
                                  "parallel_camelyon": pc_launches,

@@ -10,8 +10,10 @@ the step the driver runs once selection has kept M patches a row. The
 ``--grad_encode_chunk`` value replaces the config's (0: the whole B·M
 re-encode at once). Prints one JSON line with the step's synchronised
 milliseconds, the peak ``max_memory_allocated`` and the card's name and
-power limit. A step that does not fit ends with PyTorch's out-of-memory
-error. Needs a CUDA card; the config is JSON or YAML.
+power limit. A step that does not fit prints the same line with the
+trainer's ``GradEncodeMemoryError`` text under ``out_of_memory`` (the
+allocator's held and asked bytes as PyTorch's error states them) and
+exits 1. Needs a CUDA card; the config is JSON or YAML.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ def main(argv=None) -> int:
         print("step_memory: needs a CUDA card", file=sys.stderr)
         return 1
     from ips_tpu_torch.config import load_config
-    from ips_tpu_torch.train.steps import IPSTrainer
+    from ips_tpu_torch.train.steps import GradEncodeMemoryError, IPSTrainer
     conf = load_config(a.config)
     if a.grad_encode_chunk is not None:
         conf = conf.replace(grad_encode_chunk=a.grad_encode_chunk)
@@ -62,26 +64,31 @@ def main(argv=None) -> int:
     weights = torch.ones(conf.B, device=dev)
     pos = None if tr.pos_table is None else tr.pos_table[:conf.M].expand(
         conf.B, conf.M, -1)
-    times = []
-    for k in range(2):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        loss = tr.train_step(x, pos, mask, labels, weights,
-                             tr.new_generator(k), conf.lr)[0]
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(json.dumps({
-        "grad_encode_chunk": conf.grad_encode_chunk,
-        "batch": list(shape), "dtype": str(x.dtype),
-        "loss": float(loss), "warmup_ms": times[0] * 1e3,
-        "step_ms": times[1] * 1e3,
-        "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
-        "card": card}), flush=True)
+    line = {"grad_encode_chunk": conf.grad_encode_chunk,
+            "batch": list(shape), "dtype": str(x.dtype), "card": card}
+    times = []
+    try:
+        for k in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            loss = tr.train_step(x, pos, mask, labels, weights,
+                                 tr.new_generator(k), conf.lr)[0]
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+    except GradEncodeMemoryError as e:
+        line.update(out_of_memory=str(e), steps_done=len(times),
+                    peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+        print(json.dumps(line), flush=True)
+        return 1
+    line.update(loss=float(loss), warmup_ms=times[0] * 1e3,
+                step_ms=times[1] * 1e3,
+                peak_mib=torch.cuda.max_memory_allocated() / 2**20)
+    print(json.dumps(line), flush=True)
     return 0
 
 

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import re
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -123,6 +124,50 @@ def _cat_rows(outs):
     """Per-slot selection tuples -> each field concatenated over rows."""
     return tuple(None if xs[0] is None else torch.cat(xs)
                  for xs in zip(*outs))
+
+
+class GradEncodeMemoryError(torch.cuda.OutOfMemoryError):
+    """The gradient forward or backward of a train step, which re-encodes
+    the B·M kept patches, ran out of device memory. Raised from PyTorch's
+    error before any optimizer update. The step is never retried at
+    another ``grad_encode_chunk``: each chunk takes its own batch
+    statistics (ghost BatchNorm), so a chunked step trains another
+    function than an unchunked one, and the choice stays the user's. This
+    is the port's counterpart of XLA refusing the JAX package's step for
+    its memory when it compiles it."""
+
+
+_SIZE = r"([0-9.]+ [KMGT]?i?B)"
+
+
+def _grad_memory_message(conf: Config, mem_patch: torch.Tensor,
+                         error: BaseException) -> str:
+    """What ``GradEncodeMemoryError`` says: the setting, what the step
+    re-encodes, and the allocator's figures at the failure as PyTorch's
+    error states them."""
+    B, M = mem_patch.shape[:2]
+    c = conf.grad_encode_chunk
+    if c and c < M:
+        what = (f"in slices of B·c = {B}·{c} = {B * c} of the "
+                f"B·M = {B}·{M} = {B * M} kept patches")
+    else:
+        what = f"all B·M = {B}·{M} = {B * M} kept patches at once"
+    text = str(error)
+    asked = re.search(rf"Tried to allocate {_SIZE}", text)
+    held = re.search(rf"Of the allocated memory {_SIZE} is allocated by "
+                     rf"PyTorch, and {_SIZE} is reserved", text)
+    total = re.search(rf"total capacity of {_SIZE}", text)
+    figures = (f"held {held.group(1)} allocated ({held.group(2)} more "
+               f"reserved) of the device's {total.group(1)} and asked for "
+               f"{asked.group(1)} more" if asked and held and total
+               else "figures are not stated")
+    return (f"the train step's gradient re-encode ran out of device memory "
+            f"at grad_encode_chunk={c}, re-encoding {what} with gradients: "
+            f"the allocator {figures}. No update was applied. Set "
+            f"grad_encode_chunk to a positive value below M = {M} (e.g. 32) "
+            f"to bound the re-encode's memory; each slice then takes its own "
+            f"batch statistics (ghost BatchNorm), so the step trains another "
+            f"function than the unchunked one")
 
 
 class IPSTrainer:
@@ -339,9 +384,14 @@ class IPSTrainer:
     def _train_impl(self, mem_patch, mem_pos, mem_mask, labels, weights,
                     generator, lr: float):
         self.opt.zero_grad(set_to_none=True)
-        out = self._loss_and_aux(mem_patch, mem_pos, mem_mask, labels,
-                                 weights, generator)
-        out[0].backward()
+        try:
+            out = self._loss_and_aux(mem_patch, mem_pos, mem_mask, labels,
+                                     weights, generator)
+            out[0].backward()
+        except torch.cuda.OutOfMemoryError as e:
+            self.opt.zero_grad(set_to_none=True)
+            raise GradEncodeMemoryError(
+                _grad_memory_message(self.conf, mem_patch, e)) from e
         self._reduce_grads()
         for group in self.opt.param_groups:
             group["lr"] = lr
@@ -358,7 +408,9 @@ class IPSTrainer:
     def train_step(self, mem_patch, mem_pos, mem_mask, labels, weights,
                    generator: Optional[torch.Generator], lr: float):
         """One AdamW step on a selected (B, M) memory batch; returns
-        (loss, task_losses, preds). The gradients stay in ``.grad``."""
+        (loss, task_losses, preds). The gradients stay in ``.grad``. Every
+        train step raises :class:`GradEncodeMemoryError` when its gradient
+        pass runs out of device memory, before any update."""
         self._require_opt()
         return self._train_impl(mem_patch, mem_pos, mem_mask, labels,
                                 weights, generator, lr)

@@ -652,12 +652,13 @@ def test_exported_program_on_card_matches_live(cuda, tmp_path):
 
 
 # ------------------------------------------- collectives of the parallel port
-@pytest.mark.parametrize("backend,world", [("gloo", 2), ("nccl", 1)])
+@pytest.mark.parametrize("backend,world", [("gloo", 2), ("gloo", 4),
+                                           ("nccl", 1)])
 def test_collectives_on_card_are_exact(cuda, tmp_path, backend, world):
     """all_gather_rows, the BatchNorm's differentiable group sum (and its
-    backward) and the gradient all-reduce on CUDA tensors, over 2 gloo
-    ranks sharing cuda:0 and a 1-rank NCCL group, bitwise equal to the
-    same sums in one process."""
+    backward) and the gradient all-reduce on CUDA tensors, over 2 and 4
+    gloo ranks sharing cuda:0 (the 2x2 mesh's world) and a 1-rank NCCL
+    group, bitwise equal to the same sums in one process."""
     import os
 
     from ips_tpu_torch.parallel.launch import run_world
@@ -666,8 +667,7 @@ def test_collectives_on_card_are_exact(cuda, tmp_path, backend, world):
               [str(tmp_path), backend], timeout=120,
               python_path=[os.path.dirname(os.path.abspath(__file__))])
     parts, ws = collective_parts(world, cuda)
-    total = parts[0] if world == 1 else parts[0] + parts[1]
-    dtotal = ws[0] if world == 1 else ws[0] + ws[1]
+    total, dtotal = sum(parts[1:], parts[0]), sum(ws[1:], ws[0])
     for r in range(world):
         got = torch.load(tmp_path / f"{backend}{r}.pt")
         assert got["device"] == "cuda:0"
@@ -701,3 +701,55 @@ def test_streaming_at_1x2_on_card_stages_half_chunks(no_tf32, tmp_path):
         assert torch.equal(got["idx"], want)
         *chunks, kept = got["staged"]
         assert all(s[-1] == half for s in chunks) and kept[-1] == 8
+
+
+# ------------------------------------- the gradient re-encode out of memory
+@pytest.mark.parametrize("chunk", [0, 512], ids=["c0", "c_eq_M"])
+def test_grad_encode_out_of_memory_on_card(no_tf32, chunk):
+    """A real allocation too large for the card: train_parity's small
+    model (D = 128, ResNet-18/2, fp32) on 224x224 RGB tiles re-encodes B·M
+    = 8·512 = 4096 of them with gradients at once (grad_encode_chunk 0,
+    or M). The trainer raises GradEncodeMemoryError from PyTorch's error,
+    naming the setting, B·M and the allocator's figures, before any
+    update; once the error is dropped its memory is free again."""
+    import gc
+
+    from ips_tpu_torch.config import config_from_dict
+    from ips_tpu_torch.scripts.train_parity import SMALL_TRAIN
+    from ips_tpu_torch.train.steps import GradEncodeMemoryError, IPSTrainer
+    B, M = 8, 512
+    conf = config_from_dict(dict(
+        SMALL_TRAIN, B=B, B_seq=B, n_chan_in=3, N=M, M=M, I=M,
+        patch_size=[224, 224], patch_stride=[224, 224],
+        grad_encode_chunk=chunk))
+    tr = IPSTrainer(conf)
+    g = torch.Generator(device=no_tf32).manual_seed(0)
+    x = torch.randint(0, 256, (B, M, 224, 224, 3), dtype=torch.uint8,
+                      device=no_tf32, generator=g)
+    labels = {"majority": torch.arange(B, device=no_tf32) % 10,
+              "multi": torch.ones((B, 10), device=no_tf32)}
+    pos = tr.pos_table[:M].expand(B, M, -1)
+    before = {k: v.clone() for k, v in tr.model.state_dict().items()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    with pytest.raises(GradEncodeMemoryError) as err:
+        tr.train_step(x, pos, None, labels, torch.ones(B, device=no_tf32),
+                      tr.new_generator(0), 1e-3)
+    text = str(err.value)
+    assert f"grad_encode_chunk={chunk}" in text
+    assert f"B·M = {B}·{M} = {B * M}" in text
+    assert "GiB allocated" in text and "asked for" in text
+    assert isinstance(err.value.__cause__, torch.cuda.OutOfMemoryError)
+    assert tr.step == 0 and not tr.opt.state
+    assert all(p.grad is None for p in tr.model.parameters())
+    # the BatchNorm running statistics may hold the batches encoded
+    # before the failure; the parameters are the ones before the step
+    params = dict(tr.model.named_parameters())
+    assert all(torch.equal(params[k], before[k]) for k in params)
+    # what the failed step held (~76 GiB) is free once the error is gone;
+    # the library workspaces it made may stay (65 MiB at c = M on the
+    # H100)
+    del err
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() < base + 2**30
