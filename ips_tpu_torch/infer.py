@@ -26,6 +26,7 @@ import torch
 from ips_tpu_torch.config import Config, load_config
 from ips_tpu_torch.train.steps import IPSTrainer
 from ips_tpu_torch.utils.device import fp32_matmuls
+from ips_tpu_torch.utils.profiling import span
 
 
 class Predictor:
@@ -68,16 +69,19 @@ class Predictor:
         """patches (B, N, ...), image patches or feature rows, with an
         optional (B, N) validity mask -> {task: probs} + 'selected_idx'
         (B, M)."""
-        x = torch.as_tensor(np.ascontiguousarray(patches)).to(self.device)
-        B, N = x.shape[:2]
-        m = (torch.as_tensor(np.asarray(mask, bool)).to(self.device)
-             if mask is not None
-             else torch.ones((B, N), dtype=torch.bool, device=self.device))
-        with torch.inference_mode():
-            preds, mem_idx = self.forward(x, m)
-        out = {k: v.float().cpu().numpy() for k, v in preds.items()}
-        out["selected_idx"] = mem_idx.cpu().numpy()
-        return out
+        with span("serve.request"):
+            x = torch.as_tensor(np.ascontiguousarray(patches)).to(
+                self.device)
+            B, N = x.shape[:2]
+            m = (torch.as_tensor(np.asarray(mask, bool)).to(self.device)
+                 if mask is not None
+                 else torch.ones((B, N), dtype=torch.bool,
+                                 device=self.device))
+            with torch.inference_mode():
+                preds, mem_idx = self.forward(x, m)
+            out = {k: v.float().cpu().numpy() for k, v in preds.items()}
+            out["selected_idx"] = mem_idx.cpu().numpy()
+            return out
 
 
 def load_checkpoint(model: torch.nn.Module, path: str) -> None:

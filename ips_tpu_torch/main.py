@@ -51,7 +51,8 @@ from ips_tpu_torch.train.loop import (check_sharded_slots, evaluate,
 from ips_tpu_torch.train.metrics import MetricsLogger
 from ips_tpu_torch.train.steps import IPSTrainer
 from ips_tpu_torch.utils.device import fp32_matmuls
-from ips_tpu_torch.utils.profiling import EfficiencyTracker
+from ips_tpu_torch.utils.profiling import (RECORDER, EfficiencyTracker,
+                                         operator_ranges)
 
 DATASETS = ("mnist", "traffic", "camelyon", "camelyon_e2e")
 
@@ -144,12 +145,20 @@ def _check_multihost_path(conf: Config) -> Config:
     return conf
 
 
+@contextlib.contextmanager
 def _profiler(device: torch.device):
+    """The ``profile_dir`` profiler; the program's spans also open ranges
+    of their names in its trace, and what they record is dropped after:
+    nothing reads it."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    return profile(activities=acts)
+    try:
+        with profile(activities=acts) as prof, operator_ranges():
+            yield prof
+    finally:
+        RECORDER.clear()
 
 
 def run(conf: Config, dataset: str,

@@ -52,6 +52,8 @@ class SelectionResult:
     mem_mask: torch.Tensor                  # (B, M) bool validity
     mem_emb: Optional[torch.Tensor] = None  # (B, M, D) raw embeddings
                                             # (only with return_emb=True)
+    slots: int = 0                          # patch slots encoded over the
+                                            # B rows, padding included
 
 
 def _gather_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -135,6 +137,14 @@ def ips_select(encode_fn: EncodeFn, score_fn: ScoreFn,
         def encode_fn(x):  # noqa: F811 - the wrapped encode
             return encode_wrap(base_encode_fn, x)
 
+    slots = 0
+    uncounted_fn = encode_fn
+
+    def encode_fn(x):  # noqa: F811 - the encode, counting its slots
+        nonlocal slots
+        slots += x.shape[0] * x.shape[1]
+        return uncounted_fn(x)
+
     device = patches.device
     full_mask = (torch.ones((B, N), dtype=torch.bool, device=device)
                  if mask is None else mask)
@@ -146,7 +156,7 @@ def ips_select(encode_fn: EncodeFn, score_fn: ScoreFn,
         pos = (pos_table[:N].expand(B, N, pos_table.shape[-1])
                if pos_table is not None else None)
         emb = encode_fn(patches) if return_emb else None
-        return SelectionResult(patches, pos, idx, full_mask, emb)
+        return SelectionResult(patches, pos, idx, full_mask, emb, slots)
 
     perm = make_permutation(generator, B, N, mask, shuffle, shuffle_style,
                             device)
@@ -198,7 +208,7 @@ def ips_select(encode_fn: EncodeFn, score_fn: ScoreFn,
     mem_patch = _gather_rows(patches, mem_idx)
     mem_pos = pos_table[mem_idx] if pos_table is not None else None
     return SelectionResult(mem_patch, mem_pos, mem_idx, mem_valid,
-                           mem_emb if return_emb else None)
+                           mem_emb if return_emb else None, slots)
 
 
 def ips_select_streaming_step(encode_fn: EncodeFn, score_fn: ScoreFn,

@@ -69,6 +69,7 @@ JAX's does.
 
 from __future__ import annotations
 
+import contextlib
 from collections import deque
 from functools import partial
 from typing import Dict, NamedTuple, Optional
@@ -80,7 +81,7 @@ from ips_tpu_torch.config import Config
 from ips_tpu_torch.parallel.distributed import host_allgather, is_main_process
 from ips_tpu_torch.train.schedule import warmup_cosine_lr
 from ips_tpu_torch.train.steps import IPSTrainer
-from ips_tpu_torch.utils.profiling import EfficiencyTracker
+from ips_tpu_torch.utils.profiling import EfficiencyTracker, span
 
 _MASK64 = (1 << 64) - 1
 
@@ -284,16 +285,30 @@ class _Prepped(NamedTuple):
     seed: int
 
 
-def _prefetched(iterable, prepare, depth: int):
+def _prefetched(iterable, prepare, depth: int, before=None):
     """Yield prepare(item), keeping up to ``depth`` prepared items (their
-    copies to the device issued) ahead of the consumer."""
+    copies to the device started) ahead of the consumer; ``before(item)``,
+    if given, runs between each ``next()`` and that item's preparation.
+    Each ``next()`` on ``iterable`` and its preparation is a ``data.next``
+    span."""
     buf = deque()
-    for item in iterable:
-        buf.append(prepare(item))
+    it = iter(iterable)
+    while True:
+        with span("data.next"):
+            item = next(it, _END)
+            if item is not _END:
+                if before is not None:
+                    before(item)
+                buf.append(prepare(item))
+        if item is _END:
+            break
         if len(buf) >= max(depth, 1):
             yield buf.popleft()
     while buf:
         yield buf.popleft()
+
+
+_END = object()
 
 
 def _local_rows(trainer, conf: Config) -> int:
@@ -519,11 +534,12 @@ def _sparse_single_step(trainer, p, lr):
     if q["kind"] == "dense":
         # a dense batch on the sparse path: the select-assemble-train
         # step (select with the batch's generator, dropout from fold 1)
-        mem_patch, mem_pos, _, mem_mask = trainer.select(
-            q["patches"], q["mask"], trainer.new_generator(p.seed))
-        return trainer.train_step(
-            mem_patch, mem_pos, mem_mask, q["labels"], q["w"],
-            trainer.new_generator(fold_seed(p.seed, 1)), lr)
+        with span("train.step"):
+            mem_patch, mem_pos, _, mem_mask = trainer.select(
+                q["patches"], q["mask"], trainer.new_generator(p.seed))
+            return trainer.train_step(
+                mem_patch, mem_pos, mem_mask, q["labels"], q["w"],
+                trainer.new_generator(fold_seed(p.seed, 1)), lr)
     return trainer.fused_sparse_step(
         q["idx"], q["val"], q["hw"], q["mask"], q["labels"], q["w"],
         trainer.new_generator(p.seed), lr)
@@ -636,10 +652,12 @@ def _train_epoch_assembled(trainer, loader, epoch, logger, conf, base,
     def legacy(preps):
         nonlocal last_lr
         assembler = BatchAssembler(conf)
-        for p in preps:
-            _select_into(trainer, assembler, p)
-        last_lr = _assembler_train(trainer, conf, assembler, logger, None,
-                                   epoch, steps_per_epoch, preps[-1], False)
+        with span("train.step"):
+            for p in preps:
+                _select_into(trainer, assembler, p)
+            last_lr = _assembler_train(trainer, conf, assembler, logger,
+                                       None, epoch, steps_per_epoch,
+                                       preps[-1], False)
 
     _assembled_epoch(loader, conf, partial(_prep_fused, trainer, conf, base),
                      make_item, flush, legacy)
@@ -792,29 +810,19 @@ def _epoch_slots_streamed(trainer, loader, epoch, logger, conf, base,
     steps_seq = len(loader) * (conf.B // conf.B_seq)
     reuse = not train and trainer._reuse_eval_emb()
     last_lr = 0.0
-    for ib in enumerate(loader):
+    prep = partial(_prep_slots, trainer, conf, base, epoch, steps_seq, True)
+
+    def start(ib):
+        # a step's time includes its batch's preparation
         if tracker is not None:
             tracker.start()
-        p = _prep_slots(trainer, conf, base, epoch, steps_seq, True, ib)
-        q = p.payload
-        assembler = BatchAssembler(conf, _opt_rows(trainer, conf))
-        for j, seed in enumerate(p.seeds):
-            rows = slice(j * conf.B_seq, (j + 1) * conf.B_seq)
-            gen = trainer.new_generator(seed)
-            if reuse:
-                _, mem_pos, _, mem_mask, payload = trainer.select_streaming(
-                    q["patches"][j], q["mask"][j], gen, return_emb=True)
-            else:
-                payload, mem_pos, _, mem_mask = trainer.select_streaming(
-                    q["patches"][j], q["mask"][j], gen)
-            assembler.add(payload, mem_pos, mem_mask,
-                          {k: v[rows] for k, v in q["labels"].items()},
-                          np.ones(conf.B_seq, np.float32))
-        patch, pos, mmask, lab, weights = assembler.take()
+
+    for p in _prefetched(enumerate(loader), prep, 1, start):
         if train:
-            out = trainer.train_step(patch, pos, mmask, lab, weights,
-                                     trainer.new_generator(p.train_seed),
-                                     p.lr)
+            with span("train.step"):
+                out = trainer.train_step(
+                    *_streamed_slots(trainer, conf, p, False),
+                    trainer.new_generator(p.train_seed), p.lr)
             last_lr = p.lr
             if tracker is not None:
                 tracker.stop(epoch, epoch * steps_seq + (p.it + 1)
@@ -822,9 +830,30 @@ def _epoch_slots_streamed(trainer, loader, epoch, logger, conf, base,
                              p.it == len(loader) - 1)
         else:
             step = trainer.eval_from_emb_step if reuse else trainer.eval_step
-            out = step(patch, pos, mmask, lab, weights)
+            out = step(*_streamed_slots(trainer, conf, p, reuse))
         _log_slots(conf, logger, epoch, steps_seq, p, *out, train)
     return last_lr
+
+
+def _streamed_slots(trainer, conf, p: _Slots, reuse: bool):
+    """The rank's slots of ``p`` streamed with their generators into one
+    (patch, pos, mask, labels, weights) batch of its B / n_dp rows; with
+    ``reuse`` the buffer's embeddings in place of the patches."""
+    q = p.payload
+    assembler = BatchAssembler(conf, _opt_rows(trainer, conf))
+    for j, seed in enumerate(p.seeds):
+        rows = slice(j * conf.B_seq, (j + 1) * conf.B_seq)
+        gen = trainer.new_generator(seed)
+        if reuse:
+            _, mem_pos, _, mem_mask, payload = trainer.select_streaming(
+                q["patches"][j], q["mask"][j], gen, return_emb=True)
+        else:
+            payload, mem_pos, _, mem_mask = trainer.select_streaming(
+                q["patches"][j], q["mask"][j], gen)
+        assembler.add(payload, mem_pos, mem_mask,
+                      {k: v[rows] for k, v in q["labels"].items()},
+                      np.ones(conf.B_seq, np.float32))
+    return assembler.take()
 
 
 def _slots_epoch(trainer, loader, epoch, logger, conf, base, train,
@@ -843,6 +872,11 @@ def train_one_epoch(trainer: IPSTrainer, loader, epoch: int, logger,
                     conf: Config,
                     tracker: Optional[EfficiencyTracker] = None) -> float:
     """One training epoch; returns the last step's lr."""
+    with span("train.epoch"):
+        return _train_epoch(trainer, loader, epoch, logger, conf, tracker)
+
+
+def _train_epoch(trainer, loader, epoch, logger, conf, tracker) -> float:
     steps_per_epoch = len(loader)
     base = train_base_seed(conf.seed, epoch)
     tracker = tracker or EfficiencyTracker(conf, trainer.device)
@@ -869,19 +903,30 @@ def train_one_epoch(trainer: IPSTrainer, loader, epoch: int, logger,
 
     # B_seq < B, or streaming: select each loader batch, train once B rows
     # are in
-    prep = _prep_fused if conf.eager else _prep_host
+    prep = partial(_prep_fused if conf.eager else _prep_host, trainer, conf,
+                   base)
     last_lr = 0.0
     assembler = BatchAssembler(conf, _opt_rows(trainer, conf))
-    for ib in enumerate(loader):
-        is_last = ib[0] == steps_per_epoch - 1
+
+    def start(ib):
+        # a step's time includes its first batch's preparation (at depth
+        # 1 the assembler holds what the previous batches put in)
         if assembler.n_prep == 0:
             tracker.start()
-        p = prep(trainer, conf, base, ib)
-        _select_into(trainer, assembler, p)
-        if assembler.full or is_last:
-            last_lr = _assembler_train(trainer, conf, assembler, logger,
-                                       tracker, epoch, steps_per_epoch, p,
-                                       is_last)
+
+    # a step's span opens at its first selection and closes after its
+    # update, across the loader batches it takes
+    with contextlib.ExitStack() as step:
+        for p in _prefetched(enumerate(loader), prep, 1, start):
+            is_last = p.it == steps_per_epoch - 1
+            if assembler.n_prep == 0:
+                step.enter_context(span("train.step"))
+            _select_into(trainer, assembler, p)
+            if assembler.full or is_last:
+                last_lr = _assembler_train(trainer, conf, assembler, logger,
+                                           tracker, epoch, steps_per_epoch,
+                                           p, is_last)
+                step.close()
     tracker.finish_epoch(epoch)
     return last_lr
 

@@ -49,6 +49,7 @@ from ips_tpu_torch.models.transformer import pos_enc_1d_np
 from ips_tpu_torch.ops.densify import densify_patches
 from ips_tpu_torch.ops.selection import ips_select
 from ips_tpu_torch.utils.device import resolve_device
+from ips_tpu_torch.utils.profiling import span
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -283,22 +284,27 @@ class IPSTrainer:
         whole stacked table resolves to.
         """
         conf = self.conf
-        if conf.input_dtype == "bfloat16" and patches.dtype != torch.uint8:
-            # one up-front cast halves the bytes of every chunk gather
-            patches = patches.to(DTYPES[conf.input_dtype])
-        if preencode is None:
-            preencode = self._resolve_preencode(patches.shape, patches.dtype)
-        encode, score = self._enc_score_fns()
-        res = ips_select(encode, score, patches, M=conf.M, I=conf.I,
-                         pos_table=self.pos_table, mask=mask,
-                         generator=generator, shuffle=conf.shuffle,
-                         shuffle_style=conf.shuffle_style,
-                         return_emb=return_emb, preencode=preencode,
-                         # a conv encoder pre-encodes I patches at a time,
-                         # which bounds its activations; the projector
-                         # keeps the single encode
-                         preencode_chunked=conf.is_image,
-                         encode_wrap=self._selection_encode_wrap())
+        with span("select", self.device) as sp:
+            if (conf.input_dtype == "bfloat16"
+                    and patches.dtype != torch.uint8):
+                # one up-front cast halves the bytes of every chunk gather
+                patches = patches.to(DTYPES[conf.input_dtype])
+            if preencode is None:
+                preencode = self._resolve_preencode(patches.shape,
+                                                    patches.dtype)
+            encode, score = self._enc_score_fns()
+            res = ips_select(encode, score, patches, M=conf.M, I=conf.I,
+                             pos_table=self.pos_table, mask=mask,
+                             generator=generator, shuffle=conf.shuffle,
+                             shuffle_style=conf.shuffle_style,
+                             return_emb=return_emb, preencode=preencode,
+                             # a conv encoder pre-encodes I patches at a
+                             # time, which bounds its activations; the
+                             # projector keeps the single encode
+                             preencode_chunked=conf.is_image,
+                             encode_wrap=self._selection_encode_wrap())
+            B, N = patches.shape[:2]
+            sp.set(slots=res.slots, valid=B * N if mask is None else mask)
         out = (res.mem_patch, res.mem_pos, res.mem_idx, res.mem_mask)
         return out + (res.mem_emb,) if return_emb else out
 
@@ -385,9 +391,10 @@ class IPSTrainer:
                     generator, lr: float):
         self.opt.zero_grad(set_to_none=True)
         try:
-            out = self._loss_and_aux(mem_patch, mem_pos, mem_mask, labels,
-                                     weights, generator)
-            out[0].backward()
+            with span("regrad", self.device):
+                out = self._loss_and_aux(mem_patch, mem_pos, mem_mask,
+                                         labels, weights, generator)
+                out[0].backward()
         except torch.cuda.OutOfMemoryError as e:
             self.opt.zero_grad(set_to_none=True)
             raise GradEncodeMemoryError(
@@ -395,7 +402,8 @@ class IPSTrainer:
         self._reduce_grads()
         for group in self.opt.param_groups:
             group["lr"] = lr
-        self.opt.step()
+        with span("adamw", self.device):
+            self.opt.step()
         self.step += 1
         return _detached(out)
 
@@ -468,12 +476,14 @@ class IPSTrainer:
 
     # -- fused select + train -----------------------------------------------
     def _fused_impl(self, patches, mask, labels, weights, generator, lr):
-        # selection sees the running statistics before this step's update
-        with torch.no_grad():
-            mem_patch, mem_pos, _, mem_mask = self._select_impl(
-                patches, mask, generator)
-        return self._train_impl(mem_patch, mem_pos, mem_mask, labels,
-                                weights, generator, lr)
+        with span("train.step"):
+            # selection sees the running statistics before this step's
+            # update
+            with torch.no_grad():
+                mem_patch, mem_pos, _, mem_mask = self._select_impl(
+                    patches, mask, generator)
+            return self._train_impl(mem_patch, mem_pos, mem_mask, labels,
+                                    weights, generator, lr)
 
     def fused_step(self, patches, mask, labels, weights,
                    generator: Optional[torch.Generator], lr: float):
@@ -511,12 +521,14 @@ class IPSTrainer:
 
     def _fused_sparse_impl(self, flat_idx, values, img_hw, mask, labels,
                            weights, generator, lr):
-        # the dense batch is freed once selection has gathered what it kept
-        with torch.no_grad():
-            mem_patch, mem_pos, _, mem_mask = self._select_impl(
-                self.densify(flat_idx, values, img_hw), mask, generator)
-        return self._train_impl(mem_patch, mem_pos, mem_mask, labels,
-                                weights, generator, lr)
+        with span("train.step"):
+            # the dense batch is freed once selection has gathered what it
+            # kept
+            with torch.no_grad():
+                mem_patch, mem_pos, _, mem_mask = self._select_impl(
+                    self.densify(flat_idx, values, img_hw), mask, generator)
+            return self._train_impl(mem_patch, mem_pos, mem_mask, labels,
+                                    weights, generator, lr)
 
     def fused_sparse_step(self, flat_idx, values, img_hw, mask, labels,
                           weights, generator: Optional[torch.Generator],
@@ -586,11 +598,12 @@ class IPSTrainer:
 
     def _fused_assembled_impl(self, patches, mask, labels, weights,
                               sel_generators, train_generator, lr):
-        with torch.no_grad():
-            mem_patch, mem_pos, _, mem_mask = self._select_slots(
-                patches, mask, sel_generators)
-        return self._train_impl(mem_patch, mem_pos, mem_mask, labels,
-                                weights, train_generator, lr)
+        with span("train.step"):
+            with torch.no_grad():
+                mem_patch, mem_pos, _, mem_mask = self._select_slots(
+                    patches, mask, sel_generators)
+            return self._train_impl(mem_patch, mem_pos, mem_mask, labels,
+                                    weights, train_generator, lr)
 
     def fused_assembled_step(self, patches, mask, labels, weights,
                              sel_generators, train_generator, lr: float):

@@ -46,6 +46,7 @@ from ips_tpu_torch.models.ips_net import DTYPES
 from ips_tpu_torch.native import gather_patches
 from ips_tpu_torch.ops.selection import ips_select_streaming_step
 from ips_tpu_torch.ops.shuffle import make_permutation
+from ips_tpu_torch.utils.profiling import span
 
 def _torch_dtype(dtype: np.dtype) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dtype)).dtype
@@ -84,13 +85,19 @@ class StreamingSelector:
         k = n // sp.size
         return slice(sp.rank * k, (sp.rank + 1) * k)
 
-    def _encoder(self, encode, n: int):
+    def _encoder(self, encode, n: int, sp):
         """The encode of a chunk of ``n`` patches staged by ``_part``: the
-        slice's embeddings gathered back to all n."""
+        slice's embeddings gathered back to all n. Each call adds the
+        (B, n) patch slots it encoded to the ``slots`` of the ``select``
+        span ``sp``."""
         part = self._part(n)
-        if part.stop - part.start == n:
-            return encode
-        return lambda x: self.split.gather(encode(x))
+        whole = part.stop - part.start == n
+
+        def counted(x):
+            emb = encode(x) if whole else self.split.gather(encode(x))
+            sp.add(slots=emb.shape[0] * emb.shape[1])
+            return emb
+        return counted
 
     def _host_tiles(self, patches: np.ndarray, idx: np.ndarray
                     ) -> torch.Tensor:
@@ -117,18 +124,20 @@ class StreamingSelector:
         event that marks the copy's end (None on the CPU). With ``split``
         the tiles are this rank's ``_part`` of each chunk; the indices and
         validity stay whole."""
-        part = self._part(idx.shape[-1]) if split else slice(None)
-        tiles = self._host_tiles(patches, np.ascontiguousarray(
-            idx[..., part]))
-        idx, valid = torch.from_numpy(idx), torch.from_numpy(valid)
-        if self._copy_stream is None:
-            return (tiles, idx, valid), None
-        host = (tiles, idx.pin_memory(), valid.pin_memory())
-        with torch.cuda.stream(self._copy_stream):
-            dev = tuple(t.to(self.device, non_blocking=True) for t in host)
-            done = torch.cuda.Event()
-            done.record()
-        return dev, done
+        with span("select.stage"):
+            part = self._part(idx.shape[-1]) if split else slice(None)
+            tiles = self._host_tiles(patches, np.ascontiguousarray(
+                idx[..., part]))
+            idx, valid = torch.from_numpy(idx), torch.from_numpy(valid)
+            if self._copy_stream is None:
+                return (tiles, idx, valid), None
+            host = (tiles, idx.pin_memory(), valid.pin_memory())
+            with torch.cuda.stream(self._copy_stream):
+                dev = tuple(t.to(self.device, non_blocking=True)
+                            for t in host)
+                done = torch.cuda.Event()
+                done.record()
+            return dev, done
 
     def _ready(self, staged: _Staged):
         """The staged tensors, usable on the current stream once their
@@ -160,6 +169,14 @@ class StreamingSelector:
         embeddings in place of a host gather, upload and re-encode of the
         kept patches; on the M >= N shortcut all N patches are encoded
         once for them."""
+        B, N = patches.shape[:2]
+        with span("select", self.device) as sp:
+            sp.set(valid=B * N if mask is None else mask)
+            return self._select(patches, mask, generator, return_emb, sp)
+
+    def _select(self, patches: np.ndarray, mask: Optional[np.ndarray],
+                generator: Optional[torch.Generator], return_emb: bool,
+                sp):
         conf, tr, dev = self.conf, self.trainer, self.device
         M, I = conf.M, conf.I
         B, N = patches.shape[:2]
@@ -179,7 +196,7 @@ class StreamingSelector:
                 patches, np.tile(np.arange(N), (1, B, 1)), mask_np[None],
                 split=return_emb))
             if return_emb:
-                return None, pos, idx, mask_d, self._encoder(encode, N)(x)
+                return None, pos, idx, mask_d, self._encoder(encode, N, sp)(x)
             return x, pos, idx, mask_d
 
         # the eager engine's permutation: valid patches first, the draws
@@ -202,10 +219,10 @@ class StreamingSelector:
         # the buffer starts with the first M patches of the permutation
         tiles, mem_idx, mem_valid = self._ready(
             self._stage(*host_stage([0], M)))
-        mem_emb = self._encoder(encode, M)(tiles[0])
+        mem_emb = self._encoder(encode, M, sp)(tiles[0])
         mem_idx, mem_valid = mem_idx[0], mem_valid[0]
         del tiles
-        encode_chunk = self._encoder(encode, I)
+        encode_chunk = self._encoder(encode, I, sp)
         stages = self._chunk_stages(N)
         staged = self._stage(*host_stage(stages[0], I))
         for k in range(len(stages)):
